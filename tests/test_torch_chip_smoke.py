@@ -1,0 +1,22 @@
+"""`chip_smoke.py` refuses to run without a CUDA device: it exits non-zero
+and prints no result line, so a machine without a card never reports ok."""
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run in full")
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py")],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "no CUDA device" in proc.stderr

@@ -1,0 +1,35 @@
+"""The port imports no JAX: every `ecnf_tpu_torch` module, and the sampling
+entry point's ``--help``, load in a process where ``import jax`` fails."""
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import ecnf_tpu_torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROGRAM = """
+import importlib, pkgutil, runpy, sys
+sys.modules["jax"] = None
+sys.modules["yaml"] = None
+import ecnf_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ecnf_tpu_torch.__path__, "ecnf_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert not any(n == "jax" or n.startswith(("jax.", "ecnf_tpu.")) for n in sys.modules if sys.modules[n] is not None)
+print(len(names))
+sys.argv = ["sample", "--help"]
+runpy.run_module("ecnf_tpu_torch.sample", run_name="__main__")
+"""
+
+
+def test_port_imports_without_jax():
+    expected = len(list(pkgutil.walk_packages(ecnf_tpu_torch.__path__, "ecnf_tpu_torch.")))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROGRAM], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert int(lines[0]) == expected >= 12
+    assert "--params-npz" in proc.stdout

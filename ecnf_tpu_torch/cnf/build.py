@@ -11,6 +11,8 @@ from ecnf_tpu_torch.cnf.core import FlowMatchingCNF, optimal_transport_condition
 from ecnf_tpu_torch.models.egnn import EGNN
 from ecnf_tpu_torch.models.mlp import ConcatDense
 from ecnf_tpu_torch.ops.divergence import zero_com_trace_basis
+from ecnf_tpu_torch.ops.egcl import egnn_weights
+from ecnf_tpu_torch.ops.fused_trace import egnn_value_and_div_fused
 from ecnf_tpu_torch.ops.numerics import timestep_embedding
 from ecnf_tpu_torch.ops.tangent import egnn_value_and_trace, trace_weights
 
@@ -121,6 +123,16 @@ def build_cnf(
             use_kernel=use_kernel, weights=weights,
         )
 
+    # Fused forward + exact-divergence kernel (`ops/fused_trace.py`), only
+    # for the constant-width MLP EGNN, as in the JAX package.
+    fused = fused_weights = None
+    if len(set(mlp_units)) == 1:
+
+        def fused(x, t, features, weights=None):
+            return egnn_value_and_div_fused(net, x, t, features, weights=weights)
+
+        fused_weights = partial(egnn_weights, net.egnn)
+
     return FlowMatchingCNF(
         field=net,
         sample_base=partial(base.sample, device=device),
@@ -132,4 +144,6 @@ def build_cnf(
         exact_trace_plan=exact_trace_plan,
         tangent_value_and_div=tangent,
         trace_weights=partial(trace_weights, net),
+        fused_value_and_div=fused,
+        fused_weights=fused_weights,
     )

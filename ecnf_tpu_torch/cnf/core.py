@@ -38,6 +38,14 @@ class FlowMatchingCNF(NamedTuple):
     - ``trace_weights() -> weights``: the tangent path's weights in the
       compute dtype, taken once per solve and passed to every
       ``tangent_value_and_div`` call of that solve.
+    - ``fused_value_and_div(x, t, features, weights=None) -> (v [B, D],
+      div [B])``: the field and its full exact divergence over all D
+      identity columns in one fused kernel, f32 whatever the compute dtype
+      (`ops/fused_trace.py`, the port of the JAX CNF's hook of the same
+      name); selected by ``SolveConfig(fused_trace=True)``.  ``None`` when
+      the architecture does not support it (non-constant ``mlp_units``).
+    - ``fused_weights() -> weights``: its packed f32 weights, taken once
+      per solve.
     """
 
     field: nn.Module
@@ -48,6 +56,8 @@ class FlowMatchingCNF(NamedTuple):
     exact_trace_plan: Optional[Callable[[], Tuple[Tensor, Tensor]]] = None
     tangent_value_and_div: Optional[Callable[..., Tuple[Tensor, Tensor]]] = None
     trace_weights: Optional[Callable[[], Any]] = None
+    fused_value_and_div: Optional[Callable[..., Tuple[Tensor, Tensor]]] = None
+    fused_weights: Optional[Callable[[], Any]] = None
 
     def apply(self, x: Tensor, t: Tensor, features: Any = None) -> Tensor:
         return self.field(x, t, features)

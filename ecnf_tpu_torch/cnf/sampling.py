@@ -30,6 +30,10 @@ class SolveConfig:
     the hand-linearised trace (`ops/tangent.py`) over ``torch.func.jvp``;
     ``structured_tangent_kernel`` runs its edge chains through the CUDA
     kernel when the tensors are on a card (False forces the plain version).
+    ``fused_trace`` takes the exact trace from the CNF's fused forward +
+    full-divergence kernel (`ops/fused_trace.py`) before any other route;
+    Hutchinson solves ignore it.  The JAX ``fused_batch_tile`` and
+    ``fused_interpret`` are TPU settings and are not ported.
     """
 
     use_fixed_step_size: bool = False
@@ -39,6 +43,7 @@ class SolveConfig:
     use_exact_trace_plan: bool = True
     structured_tangent: bool = True
     structured_tangent_kernel: bool = True
+    fused_trace: bool = False
 
 
 def _solve(func, y0: Tensor, t0: float, t1: float, cfg: SolveConfig) -> Tuple[Tensor, ODEStats]:
@@ -60,6 +65,17 @@ def _draw_probes(generator, B: int, D: int, cfg: SolveConfig, device) -> Tensor:
 
 def _augmented_field(cnf: FlowMatchingCNF, features, approx: bool, eps, cfg: SolveConfig):
     """Vector field on the ``[B, D+1]`` (x, log-det) augmented state."""
+    if cfg.fused_trace and not approx:
+        if cnf.fused_value_and_div is None:
+            raise ValueError("fused_trace=True but this CNF has no fused kernel")
+        weights = cnf.fused_weights()
+
+        def func(t, y):
+            v, div = cnf.fused_value_and_div(y[:, :-1], t, features, weights=weights)
+            return torch.cat([v, div[:, None]], dim=-1)
+
+        return func
+
     basis = offset = None
     if not approx and cfg.use_exact_trace_plan and cnf.exact_trace_plan is not None:
         basis, offset = cnf.exact_trace_plan()

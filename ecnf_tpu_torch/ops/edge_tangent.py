@@ -7,10 +7,8 @@ tail, the phi_x chain and the gate, returning ``phi_t [K, B, N, N]`` and
 ``mi_t [K, B, N, U]`` in f32.
 
 - On CUDA tensors it launches the hand-written kernel in
-  ``csrc/edge_tangent.cu`` (built with nvcc for ``sm_90a`` at first use,
-  into ``build/kernels/`` at the repository root, keyed by a hash of the
-  source, and loaded with ctypes).  It raises on anything the kernel does
-  not take; there is no fallback.
+  ``csrc/edge_tangent.cu`` (built by `ops.cuda_build` at first use).  It
+  raises on anything the kernel does not take; there is no fallback.
 - On CPU tensors it runs `edge_tangent_reference`, the same math in plain
   torch ops, which is also the kernel's oracle.
 
@@ -18,23 +16,16 @@ tail, the phi_x chain and the gate, returning ``phi_t [K, B, N, N]`` and
 """
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Sequence, Tuple
 
 import torch
 
+from ecnf_tpu_torch.ops.cuda_build import check_tensor, load_library
 from ecnf_tpu_torch.ops.graph import dense_edge_mask
 
 Tensor = torch.Tensor
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "edge_tangent.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_LAYERS = 8
 _MAX_NODES = 32
@@ -89,68 +80,13 @@ def edge_tangent_reference(
     return phi_t, mi_t
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
-    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
-    for c in candidates:
-        if c.exists():
-            return str(c)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return found
-
-
-@functools.lru_cache(maxsize=None)
-def build_library() -> Tuple[Path, float, str]:
-    """Compile ``csrc/edge_tangent.cu`` for sm_90a, once per source hash.
-
-    Returns ``(library path, build seconds, compiler log)``; seconds is 0
-    and the log empty when the library was already built.
-    """
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"edge_tangent_{digest}.so"
-    if lib.exists():
-        return lib, 0.0, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-        "-o", str(tmp), str(_SOURCE),
-    ]
-    start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib, seconds, proc.stdout + proc.stderr
-
-
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    fn = ctypes.CDLL(str(build_library()[0])).ecnf_edge_tangent
+    fn = load_library("edge_tangent").ecnf_edge_tangent
     ptr = ctypes.c_void_p
     fn.argtypes = [ctypes.c_int] * 6 + [ptr] * 16
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check(name: str, x: Tensor, shape, dtype, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if x.data_ptr() % 32:
-        raise ValueError(f"{name} must be 32-byte aligned")
 
 
 def _pointers(xs: Sequence[Tensor]):
@@ -184,20 +120,20 @@ def edge_tangent(
         raise ValueError(f"edge_tangent: unsupported N={N}, U={U}, L={L}")
     if len(d_x) != L or len(e_tail) != L - 1 or len(x_tail) != L:
         raise ValueError("edge_tangent: inconsistent layer counts")
-    _check("a_t", a_t, (K, B, N, U), cd, dev)
-    _check("b_t", b_t, (K, B, N, U), cd, dev)
-    _check("l2_t", l2_t, (K, B, N, N), torch.float32, dev)
+    check_tensor("a_t", a_t, (K, B, N, U), cd, dev)
+    check_tensor("b_t", b_t, (K, B, N, U), cd, dev)
+    check_tensor("l2_t", l2_t, (K, B, N, N), torch.float32, dev)
     for name, x in [("m", m)] + [(f"d_e[{l}]", x) for l, x in enumerate(d_e)] + [
         (f"d_x[{l}]", x) for l, x in enumerate(d_x)
     ]:
-        _check(name, x, (B, N, N, U), cd, dev)
-    _check("g", g, (B, N, N), cd, dev)
-    _check("gd", gd, (B, N, N), cd, dev)
+        check_tensor(name, x, (B, N, N, U), cd, dev)
+    check_tensor("g", g, (B, N, N), cd, dev)
+    check_tensor("gd", gd, (B, N, N), cd, dev)
     for name, x in (("e_l", e_l), ("x_out", x_out), ("g_out", g_out)):
-        _check(name, x, (U,), cd, dev)
+        check_tensor(name, x, (U,), cd, dev)
     for name, ks in (("e_tail", e_tail), ("x_tail", x_tail)):
         for l, k in enumerate(ks):
-            _check(f"{name}[{l}]", k, (U, U), cd, dev)
+            check_tensor(f"{name}[{l}]", k, (U, U), cd, dev)
 
     phi_t = torch.empty((K, B, N, N), dtype=torch.float32, device=dev)
     mi_t = torch.empty((K, B, N, U), dtype=torch.float32, device=dev)

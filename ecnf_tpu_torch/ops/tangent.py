@@ -116,84 +116,90 @@ class BlockResiduals(NamedTuple):
     d_h: Tuple[Tensor, ...]  # phi_h silu' factors    L x [B, N, U] cd
 
 
+def block_forward(
+    vec: Tensor, h: Tensor, temb: Tensor, wt: BlockWeights,
+    normalization_constant: float, with_residuals: bool = True,
+) -> Tuple[Tensor, Tensor, Optional[BlockResiduals]]:
+    """One EGNN block, time ConcatDense included (the math of
+    `models.egnn`, with its casts): ``vec [B, N, D]`` f32 and ``h [B, N, H]``
+    f32 before the ConcatDense -> ``(vec_out, h_out, residuals or None)``.
+    The h residual adds the post-ConcatDense h."""
+    B, N, D = vec.shape
+    C = normalization_constant
+    mask = dense_edge_mask(N, vec.dtype, vec.device)
+    cd = wt.e_s.dtype
+    h = (
+        h.to(cd) @ wt.cd_h + (temb.to(cd) @ wt.cd_t)[:, None, :] + wt.cd_b
+    ).to(vec.dtype)
+
+    gram = torch.einsum("bnd,bmd->bnm", vec, vec)
+    r2 = torch.diagonal(gram, dim1=-2, dim2=-1)
+    raw = r2[:, :, None] + r2[:, None, :] - 2.0 * gram
+    l2 = torch.clamp(raw, min=0.0)
+    lengths = torch.where(l2 == 0, 1.0, l2) ** 0.5
+
+    def layer(z, ds):
+        if with_residuals:
+            ds.append(_dsilu(z))
+        return F.silu(z)
+
+    hb = h.to(cd)
+    z = (
+        (hb @ wt.e_s)[:, None, :, :]
+        + (hb @ wt.e_r)[:, :, None, :]
+        + l2[..., None].to(cd) * wt.e_l
+        + wt.e_b[0]
+    )
+    d_e = []
+    a = layer(z, d_e)
+    for k, bias in zip(wt.e_tail, wt.e_b[1:]):
+        a = layer(a @ k + bias, d_e)
+    m = a
+
+    d_x = []
+    for k, bias in zip(wt.x_tail, wt.x_b):
+        a = layer(a @ k + bias, d_x)
+    phi = (a @ wt.x_out + wt.x_out_b).to(vec.dtype)
+
+    w = phi * mask / (C + lengths)
+    shifts = w.sum(dim=2)[:, :, None] * vec - torch.einsum("bij,bjd->bid", w, vec)
+    vec_out = vec + shifts / (N - 1)
+
+    g = torch.sigmoid(m @ wt.g_out + wt.g_out_b)
+    m_i = ((m * g[..., None]).to(vec.dtype) * mask[None, :, :, None]).sum(
+        dim=2
+    ) / math.sqrt(N - 1)
+
+    d_h = []
+    a = layer(m_i.to(cd) @ wt.h_m + hb @ wt.h_h + wt.h_b[0], d_h)
+    for k, bias in zip(wt.h_tail, wt.h_b[1:-1]):
+        a = layer(a @ k + bias, d_h)
+    h_out = (a @ wt.h_out + wt.h_b[-1]).to(h.dtype) + h
+
+    res = None
+    if with_residuals:
+        res = BlockResiduals(
+            vec=vec, l2=l2, active=raw > 0, lengths=lengths, phi=phi, w=w,
+            d_e=tuple(d_e), d_x=tuple(d_x), m=m, g=g, gd=g * (1.0 - g),
+            d_h=tuple(d_h),
+        )
+    return vec_out, h_out, res
+
+
 def egnn_forward_residuals(
     pos: Tensor, h0: Tensor, temb: Tensor, weights: Sequence[BlockWeights],
     normalization_constant: float, final_scaling: Tensor,
 ) -> Tuple[Tensor, List[BlockResiduals]]:
-    """EGNN torso forward (the math of `models.egnn`, with its casts),
-    returning ``(out [B, N, D] f32, per-block residuals)``."""
-    B, N, D = pos.shape
-    C = normalization_constant
-    mask = dense_edge_mask(N, pos.dtype, pos.device)
-
+    """EGNN torso forward, returning ``(out [B, N, D] f32, per-block
+    residuals)``."""
     pos_mean = pos.mean(dim=-2, keepdim=True)
     vec = pos - pos_mean
     initial_vec = vec
     h = h0
     residuals = []
     for wt in weights:
-        cd = wt.e_s.dtype
-        h = (
-            h.to(cd) @ wt.cd_h + (temb.to(cd) @ wt.cd_t)[:, None, :] + wt.cd_b
-        ).to(pos.dtype)
-
-        gram = torch.einsum("bnd,bmd->bnm", vec, vec)
-        r2 = torch.diagonal(gram, dim1=-2, dim2=-1)
-        raw = r2[:, :, None] + r2[:, None, :] - 2.0 * gram
-        active = raw > 0
-        l2 = torch.clamp(raw, min=0.0)
-        lengths = torch.where(l2 == 0, 1.0, l2) ** 0.5
-
-        hb = h.to(cd)
-        z = (
-            (hb @ wt.e_s)[:, None, :, :]
-            + (hb @ wt.e_r)[:, :, None, :]
-            + l2[..., None].to(cd) * wt.e_l
-            + wt.e_b[0]
-        )
-        d_e = [_dsilu(z)]
-        a = F.silu(z)
-        for k, bias in zip(wt.e_tail, wt.e_b[1:]):
-            z = a @ k + bias
-            d_e.append(_dsilu(z))
-            a = F.silu(z)
-        m = a
-
-        d_x = []
-        for k, bias in zip(wt.x_tail, wt.x_b):
-            z = a @ k + bias
-            d_x.append(_dsilu(z))
-            a = F.silu(z)
-        phi = (a @ wt.x_out + wt.x_out_b).to(pos.dtype)
-
-        w = phi * mask / (C + lengths)
-        shifts = w.sum(dim=2)[:, :, None] * vec - torch.einsum("bij,bjd->bid", w, vec)
-        vec_out = vec + shifts / (N - 1)
-
-        g = torch.sigmoid(m @ wt.g_out + wt.g_out_b)
-        gd = g * (1.0 - g)
-        m_i = ((m * g[..., None]).to(pos.dtype) * mask[None, :, :, None]).sum(
-            dim=2
-        ) / math.sqrt(N - 1)
-
-        z = m_i.to(cd) @ wt.h_m + hb @ wt.h_h + wt.h_b[0]
-        d_h = [_dsilu(z)]
-        a = F.silu(z)
-        for k, bias in zip(wt.h_tail, wt.h_b[1:-1]):
-            z = a @ k + bias
-            d_h.append(_dsilu(z))
-            a = F.silu(z)
-        h_out = (a @ wt.h_out + wt.h_b[-1]).to(h.dtype)
-
-        residuals.append(
-            BlockResiduals(
-                vec=vec, l2=l2, active=active, lengths=lengths, phi=phi, w=w,
-                d_e=tuple(d_e), d_x=tuple(d_x), m=m, g=g, gd=gd, d_h=tuple(d_h),
-            )
-        )
-        h = h_out + h
-        vec = vec_out
-
+        vec, h, res = block_forward(vec, h, temb, wt, normalization_constant)
+        residuals.append(res)
     out = (vec - initial_vec - pos_mean) * final_scaling
     return out, residuals
 
@@ -263,7 +269,8 @@ def egnn_value_and_trace(
 
     Returns ``(f(x) [B, D], sum_k u_k^T J u_k (+ trace_offset) [B])``.
     ``weights`` is `trace_weights(field)`, taken once per solve by the
-    caller; it is rebuilt here when not given.  Two basis forms:
+    caller; it is rebuilt here when not given.  The MLPs run in the dtype
+    of the weights given (f32 weights give the f32 trace of a bf16 field).  Two basis forms:
 
     - ``[K, D]``: rows shared by the batch (the zero-CoM trace basis or
       identity columns);
@@ -276,7 +283,6 @@ def egnn_value_and_trace(
     """
     egnn = field.egnn
     n_nodes, dim = field.n_nodes, field.dim
-    cd = field.compute_dtype or torch.float32
     B = x.shape[0]
     K = basis.shape[0]
     pos = x.reshape(B, n_nodes, dim)
@@ -285,6 +291,7 @@ def egnn_value_and_trace(
 
     if weights is None:
         weights = trace_weights(field)
+    cd = weights[0].e_s.dtype
     final_scaling = egnn.final_scaling.detach()
     out, residuals = egnn_forward_residuals(
         pos, h0, temb, weights, egnn.normalization_constant, final_scaling

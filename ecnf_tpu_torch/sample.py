@@ -10,7 +10,7 @@ see `ecnf_tpu_torch.convert`) or, without it, from the seeded init.
 Usage:
     python -m ecnf_tpu_torch.sample --n-nodes 13 --n-samples 96 \
         --batch-size 48 --method rk4 --with-log-prob --dtype bfloat16 \
-        [--params-npz params.npz] [--output samples.npy]
+        [--fused-trace] [--params-npz params.npz] [--output samples.npy]
 """
 import argparse
 import time
@@ -41,6 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--with-log-prob", action="store_true",
                    help="also compute log q(x) along the forward solve")
     p.add_argument("--approx", action="store_true", help="Hutchinson estimate")
+    p.add_argument("--fused-trace", action="store_true",
+                   help="exact trace through the fused forward + divergence kernel "
+                        "(f32; only with --with-log-prob)")
     p.add_argument("--hutchinson-probes", type=positive_int, default=1)
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16",
                    help="compute dtype of the EGNN's MLPs")
@@ -88,7 +91,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cnf = build_from_args(args, device)
     cfg = SolveConfig(
         use_fixed_step_size=True, step_size=args.step_size, method=args.method,
-        hutchinson_probes=args.hutchinson_probes,
+        hutchinson_probes=args.hutchinson_probes, fused_trace=args.fused_trace,
     )
     n, B = args.n_samples, min(args.batch_size, args.n_samples)
     features = torch.zeros((B, args.n_nodes), dtype=torch.int64, device=device)
@@ -118,7 +121,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         print(f"WARNING: {int(bad.sum())}/{n} samples are non-finite")
     extra = ""
     if log_q is not None:
-        kind = "Hutchinson" if args.approx else "exact"
+        kind = "Hutchinson" if args.approx else ("exact, fused" if args.fused_trace else "exact")
         extra = f", mean log q {log_q.mean():.4f} ({kind} trace)"
     print(
         f"sampled {n} configurations on {device} in {seconds:.2f}s "

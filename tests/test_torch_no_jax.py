@@ -25,11 +25,14 @@ runpy.run_module("ecnf_tpu_torch.sample", run_name="__main__")
 
 
 def test_port_imports_without_jax():
-    expected = len(list(pkgutil.walk_packages(ecnf_tpu_torch.__path__, "ecnf_tpu_torch.")))
+    names = {m.name for m in pkgutil.walk_packages(ecnf_tpu_torch.__path__, "ecnf_tpu_torch.")}
+    kernel_modules = {f"ecnf_tpu_torch.ops.{m}" for m in ("cuda_build", "edge_tangent", "egcl", "fused_trace")}
+    assert kernel_modules <= names
+    expected = len(names)
     proc = subprocess.run(
         [sys.executable, "-c", _PROGRAM], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
-    assert int(lines[0]) == expected >= 12
+    assert int(lines[0]) == expected >= 15
     assert "--params-npz" in proc.stdout

@@ -5,7 +5,10 @@ Phases, one or more lines each:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: compile the three CUDA kernels from ``ecnf_tpu_torch/csrc``, one
-   nvcc each, all at once, with their register and spill lines;
+   nvcc each, all at once, with their register and spill lines and the
+   count of tensor-core (HMMA) instructions in each library
+   (``cuobjdump -sass``); the f32 kernels must have some, since their
+   dense passes run on the tensor cores in 3xTF32;
 3. kernel vs plain: the edge-tangent kernel against
    `edge_tangent_reference` at the LJ13 and QM9 shapes, in float32 and
    bfloat16, with times;
@@ -18,17 +21,28 @@ Phases, one or more lines each:
 6. EGCL forward: `flat_egnn_apply_fused`'s kernel against its plain
    version at LJ13 width (B=48 and the B=256 of `scripts/bench_pallas.py`)
    and at QM9 width (5 blocks of [256]*4, hidden 32, B=64), f32, with
-   times; then an rk4 sample-only solve whose field is
+   times, bound, achieved TFLOP/s and share of the bound; then an rk4
+   sample-only solve whose field is
    `flat_egnn_apply_fused`, its launches counted, against the solve
    through the field module;
 7. fused trace: `egnn_value_and_div_fused`'s kernel against its plain
-   version at LJ13 (B=48) and for one QM9 evaluation (B=64, 57 columns);
+   version at LJ13 (B=48) and for one QM9 evaluation (B=64, 57 columns),
+   with times, bound, achieved TFLOP/s and share of the bound, and the
+   kernel's time at every column count per thread block that launches;
 8. fused serving: ``python -m ecnf_tpu_torch.sample --fused-trace`` at the
    full LJ13 width with its launches counted, then the float32 solve with
    ``fused_trace=True`` against the phase-4 references;
 9. timing of the serving solve with CUDA events, in turns (a, b, b, a,
    twice; median): the structured path's kernel against its plain
-   version (bf16), and the fused path's kernel against its plain version.
+   version (bf16), and the fused path's kernel against its plain version,
+   with the fused kernel's share of the fused solve.
+
+Bounds: the larger of the bytes a kernel must move (inputs read once,
+outputs written once) at 3.35 TB/s and its operations at the card's peak
+for their type.  Operations count only the [U, U] edge layers (B N^2 rows
+per stream), so each bound is a lower bound: bf16 products at 989 TFLOP/s;
+f32-accurate ones as three TF32 products at 495 TFLOP/s (3xTF32, the
+tensor-core route the f32 kernels take, which beats f32 FMAs at 67).
 
 It then prints one JSON line listing every kernel, the card line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the
@@ -41,9 +55,12 @@ import concurrent.futures
 import dataclasses
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -73,6 +90,10 @@ EGCL_SHAPES = (
     ("qm9", 19, (256,) * 4, 32, 5, 64),
 )
 KERNELS = ("edge_tangent", "egcl", "fused_trace")
+# Published H100 SXM peaks (dense): HBM bytes/s, bf16 and TF32 tensor-core FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 
 
 def check(ok: bool, message: str) -> None:
@@ -105,6 +126,50 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def edge_flop(rows: int, streams: int, L: int, U: int, blocks: int = 1) -> float:
+    """FLOP of the [U, U] edge layers (L - 1 of phi_e, L of phi_x) over
+    ``rows`` edge rows for ``streams`` streams (primal and tangents)."""
+    return 2.0 * rows * streams * (2 * L - 1) * blocks * U * U
+
+
+def bound(flop: float, nbytes: float, flops_per_s: float, products: int = 1) -> dict:
+    """Least time for the work: ms and what bounds it."""
+    ops_ms = products * flop / flops_per_s * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                flop=flop)
+
+
+def rate_line(b: dict, ms: float) -> str:
+    return (f"bound={b['bound_ms'] * 1e3:.1f}us ({b['bound_by']}) "
+            f"achieved={b['flop'] / ms / 1e9:.1f} TFLOP/s share={b['bound_ms'] / ms:.3f}")
+
+
+def _cuobjdump() -> str:
+    """cuobjdump from the CUDA toolkit, or Triton's copy of it."""
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidates = [Path(cuda_home) / "bin" / "cuobjdump"]
+    try:
+        import triton
+
+        candidates.append(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    for c in candidates:
+        if c.exists():
+            return str(c)
+    found = shutil.which("cuobjdump")
+    check(found is not None, "cuobjdump not found")
+    return found
+
+
+def hmma_count(library: Path) -> int:
+    """Tensor-core (HMMA) instructions in a built library's SASS."""
+    out = subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True, text=True,
+                         timeout=300, check=True)
+    return sum(line.count("HMMA") for line in out.stdout.splitlines())
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -146,6 +211,20 @@ def edge_inputs(K, B, N, U, L, dtype, seed):
     )
 
 
+def nbytes(*objs) -> int:
+    """Bytes of every tensor in ``objs`` (lists, tuples and dict values
+    searched)."""
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            total += nbytes(*o.values())
+        elif isinstance(o, (list, tuple)):
+            total += nbytes(*o)
+    return total
+
+
 def phase_kernel_vs_plain(et) -> dict:
     results = {}
     for shape_name, shape in (("lj13", LJ13_EDGE), ("qm9", QM9_EDGE)):
@@ -161,15 +240,18 @@ def phase_kernel_vs_plain(et) -> dict:
             ms = cuda_ms(lambda: et.edge_tangent(**args), reps)
             plain_ms = cuda_ms(lambda: et.edge_tangent_reference(**args), reps)
             name = str(dtype).replace("torch.", "")
+            K, B, N, U, L = (shape[k] for k in ("K", "B", "N", "U", "L"))
+            b = bound(edge_flop(B * N * N, K, L, U), nbytes(args, kernel),
+                      *((BF16_FLOPS, 1) if dtype == torch.bfloat16 else (TF32_FLOPS, 3)))
             print(
                 f"[kernel] {shape_name} {shape} {name}: max_abs_err={abs_err:.3e} "
                 f"rel={rel:.3e} (limit {EDGE_LIMITS[dtype]:.0e}) "
-                f"kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us",
+                f"kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us {rate_line(b, ms)}",
                 flush=True,
             )
             check(math.isfinite(rel) and rel <= EDGE_LIMITS[dtype],
                   f"edge_tangent {shape_name} {name} rel error {rel:.3e}")
-            results[(shape_name, name)] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+            results[(shape_name, name)] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **b)
             del args, kernel, plain
             torch.cuda.empty_cache()
     return results
@@ -286,14 +368,18 @@ def phase_egcl(egcl, ode) -> dict:
         plain_ms = cuda_ms(
             lambda: egcl.flat_egnn_apply_fused(cnf.field, x, t, f, w, use_kernel=False), 10
         )
+        U, L, P = units[0], len(units), w.flat.shape[1]
+        moved = 4 * blocks * (2 * B * n * 3 + 2 * B * n * hidden + B * 8 + P)
+        b = bound(edge_flop(B * n * n, 1, L, U, blocks), moved, TF32_FLOPS, products=3)
         print(
-            f"[egcl] {name} B={B} N={n} U={units[0]} L={len(units)} blocks={blocks} f32 "
+            f"[egcl] {name} B={B} N={n} U={U} L={L} blocks={blocks} f32 "
             f"forward: max_abs_err={abs_err:.3e} rel={rel:.3e} (limit {F32_LIMIT:.0e}) "
-            f"kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us ({blocks} launches)",
+            f"kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us ({blocks} launches) "
+            f"{rate_line(b, ms)}",
             flush=True,
         )
         check(math.isfinite(rel) and rel <= F32_LIMIT, f"egcl {name} B={B} rel error {rel:.3e}")
-        results[(name, B)] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+        results[(name, B)] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **b)
         del cnf, w, kernel, plain
         torch.cuda.empty_cache()
 
@@ -345,17 +431,31 @@ def phase_fused_kernel(fused_trace) -> dict:
         plain_ms = cuda_ms(
             lambda: fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, w, use_kernel=False), reps
         )
+        U, L, ND, P = units[0], len(units), n * 3, w.flat.shape[1]
+        moved = 4 * (2 * B * ND + B * n * hidden + B * 8 + blocks * P + 1 + B)
+        b = bound(edge_flop(B * n * n, 1 + ND, L, U, blocks), moved, TF32_FLOPS, products=3)
         print(
-            f"[fused] {name} B={B} N={n} U={units[0]} L={len(units)} blocks={blocks} "
-            f"{n * 3} columns ({cols} per thread block): v rel {v_rel:.3e}, network trace "
+            f"[fused] {name} B={B} N={n} U={U} L={L} blocks={blocks} "
+            f"{ND} columns ({cols} per thread block): v rel {v_rel:.3e}, network trace "
             f"rel {net_rel:.3e} (limit {F32_LIMIT:.0e} each; max |network trace| "
             f"{(d_p + offset).abs().max().item():.3f}), max_abs_err={abs_err:.3e} "
-            f"kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us",
+            f"kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us {rate_line(b, ms)}",
             flush=True,
         )
         check(math.isfinite(v_rel) and v_rel <= F32_LIMIT, f"fused {name} v rel {v_rel:.3e}")
         check(math.isfinite(net_rel) and net_rel <= F32_LIMIT, f"fused {name} trace rel {net_rel:.3e}")
-        results[name] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+        results[name] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **b)
+        # Every column count per thread block that launches (the choice above
+        # is the kernel's own, from a cost model; this shows what it costs).
+        sweep = []
+        for c in range(1, ND + 1):
+            run = lambda: fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, w, columns_per_block=c)
+            try:
+                run()
+            except RuntimeError:
+                break
+            sweep.append(f"{c}:{cuda_ms(run, reps):.3f}")
+        print(f"[fused] {name} ms per launch by columns per thread block: {' '.join(sweep)}", flush=True)
         del cnf, w, v, d, v_p, d_p
         torch.cuda.empty_cache()
     return results
@@ -381,8 +481,9 @@ def phase_fused_serving(sample, sampling, f32) -> int:
     return launches
 
 
-def phase_timing(sample, sampling, fused_trace, card: str) -> dict:
-    """Serving solve per path, ms (median of turns a, b, b, a, twice)."""
+def phase_timing(sample, sampling, fused_trace, card: str, fused_ms: float) -> dict:
+    """Serving solve per path, ms (median of turns a, b, b, a, twice).
+    ``fused_ms`` is the fused kernel's time per launch from phase 7."""
     args = sample.build_parser().parse_args(LJ13_ARGS)
     cnf = sample.build_from_args(args, torch.device("cuda"))
     feats = torch.zeros((48, 13), dtype=torch.int64, device="cuda")
@@ -416,6 +517,12 @@ def phase_timing(sample, sampling, fused_trace, card: str) -> dict:
             f"(turns {[round(t, 1) for t in ts]}) on {card}",
             flush=True,
         )
+    share = FUSED_LAUNCHES * fused_ms / medians["fused kernel"]
+    print(
+        f"[timing] fused kernel path: {FUSED_LAUNCHES} launches x {fused_ms:.3f} ms (phase 7) = "
+        f"{FUSED_LAUNCHES * fused_ms:.1f} ms, {100 * share:.1f}% of the solve",
+        flush=True,
+    )
     return medians
 
 
@@ -437,52 +544,46 @@ def main() -> None:
 
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         builds = list(pool.map(cuda_build.build_library, KERNELS))
-    for path, seconds, log in builds:
-        print(f"[build] {path.name} in {seconds:.1f}s", flush=True)
+    for name, (path, seconds, log) in zip(KERNELS, builds):
+        hmma = hmma_count(path)
+        print(f"[build] {path.name} in {seconds:.1f}s, {hmma} HMMA instructions", flush=True)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
+        check(hmma > 0 or name == "edge_tangent", f"{name}: no tensor-core instructions")
 
     edge = phase_kernel_vs_plain(et)
     launches, f32 = phase_serving(sample, sampling)
     egcl_results = phase_egcl(egcl, ode)
     fused = phase_fused_kernel(fused_trace)
     fused_launches = phase_fused_serving(sample, sampling, f32)
-    phase_timing(sample, sampling, fused_trace, card)
+    phase_timing(sample, sampling, fused_trace, card, fused["lj13"]["ms"])
 
-    main_path = edge[("lj13", "bfloat16")]
-    egcl_main = egcl_results[("lj13", 48)]
+    # Per kernel, its main-path shapes: the LJ13 structured solve's bf16
+    # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches)
+    # and one LJ13 fused evaluation.  No single PyTorch call computes any
+    # of these functions, so library_ms is null.
+    rows = (
+        ("edge_tangent", "edge_tangent.cu", "tangent_kernel.py:374", launches, edge[("lj13", "bfloat16")]),
+        ("egcl_forward", "egcl.cu", "attic/egcl_kernel.py:200", egcl_results["launches"],
+         egcl_results[("lj13", 48)]),
+        ("fused_trace", "fused_trace.cu", "attic/trace_kernel.py:171", fused_launches, fused["lj13"]),
+    )
     print(json.dumps({"kernels": [
         {
-            "name": "edge_tangent",
+            "name": name,
             "route": "cuda",
-            "source": "ecnf_tpu_torch/csrc/edge_tangent.cu",
-            "replaces": "ecnf_tpu/ops/pallas/tangent_kernel.py:344",
-            "launches": launches,
-            "max_abs_err": main_path["abs_err"],
-            "ms": main_path["ms"],
-            "plain_ms": main_path["plain_ms"],
-        },
-        {
-            "name": "egcl_forward",
-            "route": "cuda",
-            "source": "ecnf_tpu_torch/csrc/egcl.cu",
-            "replaces": "ecnf_tpu/ops/pallas/attic/egcl_kernel.py:55",
-            "launches": egcl_results["launches"],
-            "max_abs_err": egcl_main["abs_err"],
-            "ms": egcl_main["ms"],
-            "plain_ms": egcl_main["plain_ms"],
-        },
-        {
-            "name": "fused_trace",
-            "route": "cuda",
-            "source": "ecnf_tpu_torch/csrc/fused_trace.cu",
-            "replaces": "ecnf_tpu/ops/pallas/attic/trace_kernel.py:130",
-            "launches": fused_launches,
-            "max_abs_err": fused["lj13"]["abs_err"],
-            "ms": fused["lj13"]["ms"],
-            "plain_ms": fused["lj13"]["plain_ms"],
-        },
+            "source": f"ecnf_tpu_torch/csrc/{source}",
+            "replaces": f"ecnf_tpu/ops/pallas/{replaces}",
+            "launches": n,
+            "max_abs_err": r["abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        }
+        for name, source, replaces, n, r in rows
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,10 +18,12 @@
 // one slot.
 //
 // At LJ13 width (N=13, U=128, L=3) a block does ~1.2 M FMAs over its 13
-// edge rows, and a thread owns only 2 of them (13 rows over 8 row groups of
-// 256 threads), so each staged weight float4 feeds 2 x 16 FMAs: the
-// shared-memory weight reads, not the FMA pipe, should set its pace.
-// Stacking several receivers' rows in one tile is the next step.
+// edge rows, which fill 13 of the 16 rows of one tensor-core row tile; the
+// dense passes run in 3xTF32 (`dense_staged`), with the 8 warps spread
+// over the outputs.  Each thread block streams every weight through
+// shared memory for its 13 rows, so that stream and the per-pass
+// barriers, not the tensor cores, set its pace.  Stacking several
+// receivers' rows in one tile is the next step.
 
 #include <cuda_runtime.h>
 
@@ -33,11 +35,16 @@ using namespace ecnf;
 
 constexpr int kThreads = 256;
 
-template <int R>
-__global__ void __launch_bounds__(kThreads)
+// Thread blocks per SM that the register budget must allow: three with
+// one row tile per warp (80 registers a thread, some spilled: faster at
+// LJ13 width than two blocks of 128), two with two (at QM9 width the
+// spills of 80 registers cost more than a third block gains).
+template <int MT>
+__global__ void __launch_bounds__(kThreads, MT == 1 ? 3 : 2)
     egcl_kernel(const Dims d, const Layout y, const Plan p, const float* vec,
                 const float* h, const float* temb, const float* W,
                 float* vec_out, float* h_out) {
+  ECNF_PROBE_SCOPE(probe, kProbeTotal);
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int i = blockIdx.x;
@@ -50,25 +57,25 @@ __global__ void __launch_bounds__(kThreads)
   for (int idx = threadIdx.x; idx < d.T; idx += kThreads)
     sm[p.temb + idx] = temb[static_cast<size_t>(b) * d.T + idx];
   __syncthreads();
-  block_prologue<kThreads, R>(d, y, W, sm, p, 1);
+  block_prologue<kThreads, MT>(d, y, W, sm, p, 1);
   const size_t node = static_cast<size_t>(b) * N + i;
-  receiver_pass<kThreads, R>(d, y, W, sm, p, 1, i, sm + p.vec, vec_out + node * D, 0,
+  receiver_pass<kThreads, MT>(d, y, W, sm, p, 1, i, sm + p.vec, vec_out + node * D, 0,
                              sm + p.mi, 0);
-  node_update<kThreads, R>(d, y, W, sm, p, 1, 1, sm + p.mi, 1, sm + p.hc + i * p.lh, 0,
+  node_update<kThreads, MT>(d, y, W, sm, p, 1, 1, sm + p.mi, 1, sm + p.hc + i * p.lh, 0,
                            h_out + node * H, H, 0);
 }
 
-template <int R>
+template <int MT>
 cudaError_t launch(const Dims& d, int B, const float* vec, const float* h,
                    const float* temb, const float* w, float* vec_out,
                    float* h_out, cudaStream_t stream) {
   const Plan p = make_plan(d, 1, 1);
   const size_t smem = static_cast<size_t>(p.total) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      egcl_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      egcl_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  egcl_kernel<R><<<dim3(d.N, B), kThreads, smem, stream>>>(
+  egcl_kernel<MT><<<dim3(d.N, B), kThreads, smem, stream>>>(
       d, make_layout(d.H, d.T, d.U, d.L), p, vec, h, temb, w, vec_out, h_out);
   return cudaGetLastError();
 }
@@ -92,15 +99,8 @@ extern "C" int ecnf_egcl_forward(int B, int N, int D, int H, int T, int U,
     return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{N, D, H, T, U, L, C};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int G = row_groups(kThreads, U);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (N <= 2 * G)
-    err = launch<2>(d, B, vec, h, temb, w, vec_out, h_out, s);
-  else if (N <= 4 * G)
-    err = launch<4>(d, B, vec, h, temb, w, vec_out, h_out, s);
-  else if (N <= 5 * G)
-    err = launch<5>(d, B, vec, h, temb, w, vec_out, h_out, s);
-  else if (N <= 8 * G)
-    err = launch<8>(d, B, vec, h, temb, w, vec_out, h_out, s);
-  return static_cast<int>(err);
+  // N <= 32 rows: two row tiles at most, over at least one row group.
+  if (warp_row_tiles(kThreads / 32, N, U) == 1)
+    return static_cast<int>(launch<1>(d, B, vec, h, temb, w, vec_out, h_out, s));
+  return static_cast<int>(launch<2>(d, B, vec, h, temb, w, vec_out, h_out, s));
 }

@@ -16,11 +16,14 @@
 // `ecnf_tpu_torch/ops/tangent.py` (`block_forward`, `_block_tangent`,
 // `edge_tangent_reference`), evaluated in lockstep with the primal.
 //
-// Everything is f32 on the CUDA cores (no TF32): the port's f32 limits are
-// 1e-4.  The weights of one EGNN block are one packed f32 buffer whose
-// order is `ops/egcl.py: weight_list` (the JAX `_flatten_egcl_weights`
-// order), every segment padded to a multiple of 4 floats; `make_layout`
-// below walks the same order.
+// Everything is f32-accurate: the dense passes over the edge and node rows
+// (`dense_staged`) run on the tensor cores in 3xTF32, each f32 operand
+// split into two TF32 halves and each product taken as three TF32 mma's
+// (one TF32 product would miss the port's f32 limits of 1e-4); the rest
+// runs in f32 on the CUDA cores.  The weights of one EGNN block are
+// one packed f32 buffer whose order is `ops/egcl.py: weight_list` (the JAX
+// `_flatten_egcl_weights` order), every segment padded to a multiple of 4
+// floats; `make_layout` below walks the same order.
 
 #pragma once
 
@@ -31,8 +34,44 @@ namespace ecnf {
 constexpr int kMaxLayers = 8;
 constexpr int kMaxNodes = 32;
 constexpr int kMaxDim = 4;
-constexpr int kStageFloats = 2048;  // one weight chunk, 8 KB
+constexpr int kStageFloats = 4096;  // one weight chunk, 16 KB
 constexpr int kStages = 3;  // chunks in flight or in use
+
+// Clock probes, compiled only with -DECNF_PROBE (`kernel_probe.py`):
+// thread 0 of every thread block adds the SM clocks it spends in each part
+// to ecnf_probe_clocks, which `ecnf_probe_clocks_read` copies out and
+// clears.  Thread 0 waits at the same barriers as the other threads, so its
+// clocks are the block's.
+enum ProbePart {
+  kProbeTotal, kProbeDense, kProbeDenseWait, kProbeSilu, kProbeFirst, kProbeRowDots, kProbeParts
+};
+#ifdef ECNF_PROBE
+__device__ unsigned long long ecnf_probe_clocks[kProbeParts];
+
+#ifdef __CUDA_ARCH__
+struct ProbeScope {
+  int part;
+  long long t0;
+  __device__ explicit ProbeScope(int p) : part(p), t0(clock64()) {}
+  __device__ ~ProbeScope() {
+    if (threadIdx.x == 0)
+      atomicAdd(&ecnf_probe_clocks[part], static_cast<unsigned long long>(clock64() - t0));
+  }
+};
+#define ECNF_PROBE_SCOPE(name, part) const ProbeScope name(part)
+#else
+#define ECNF_PROBE_SCOPE(name, part)
+#endif
+
+extern "C" int ecnf_probe_clocks_read(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, ecnf_probe_clocks, sizeof(ecnf_probe_clocks));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[kProbeParts] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(ecnf_probe_clocks, zero, sizeof(zero)));
+}
+#else
+#define ECNF_PROBE_SCOPE(name, part)
+#endif
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
 
@@ -101,8 +140,8 @@ struct Dims {
 
 // Float offsets into dynamic shared memory for S slots, with phi_h run
 // for `group` receivers at a time.  [S][N][...] arrays hold slot s at
-// s * N rows.  Rows that a dense pass reads are padded by 4 floats
-// (lh = H + 4, lu = U + 4), so that the rows a warp reads at once fall in
+// s * N rows.  Rows that a dense pass reads are padded by 8 floats
+// (lh = H + 8, lu = U + 8), so that the rows a warp reads at once fall in
 // distinct banks.
 struct Plan {
   int lh, lu;
@@ -122,8 +161,8 @@ __host__ __device__ inline Plan make_plan(const Dims& d, int S, int group) {
   Plan p{};
   int o = 0;
   const int SN = S * d.N;
-  p.lh = d.H + 4;
-  p.lu = d.U + 4;
+  p.lh = d.H + 8;
+  p.lu = d.U + 8;
   p.vec = take(o, SN * d.D);
   p.vec_new = take(o, SN * d.D);
   p.init_vec = take(o, d.N * d.D);
@@ -151,13 +190,14 @@ __host__ __device__ inline Plan make_plan(const Dims& d, int S, int group) {
   return p;
 }
 
-// Shapes the kernels take: U and H powers of two (a dense pass maps 4
-// outputs to a thread and needs NT % (width / 4) == 0), H <= U.
+// Shapes the kernels take: U and H powers of two (a tensor-core pass
+// takes 8-wide output tiles and 8-deep steps, and `dense` maps 4 outputs
+// to a thread and needs NT % (width / 4) == 0), 8 <= H <= U.
 inline bool supported(int N, int D, int H, int T, int U, int L) {
   auto pow2 = [](int x) { return x > 0 && (x & (x - 1)) == 0; };
   return N >= 2 && N <= kMaxNodes && D >= 1 && D <= kMaxDim && T >= 1 &&
          L >= 1 && L <= kMaxLayers && pow2(U) && U >= 32 && U <= 256 &&
-         pow2(H) && H >= 4 && H <= U;
+         pow2(H) && H >= 8 && H <= U;
 }
 
 // Rows that one dense pass of NT threads over `Uo` outputs covers per
@@ -198,13 +238,14 @@ __device__ __forceinline__ Tile tile_of(int Uo) {
 // past `rows` on a clamped copy whose result is dropped: the loop has no
 // branch, so its loads can be issued ahead.  The sum runs over c in
 // order.  K, ld and Uo are multiples of 4; `in` and W are 16-byte
-// aligned.  This form reads the weights from L1/L2 and serves the
-// receiver's first-layer term (S rows); `dense_staged` below serves the
-// edge and node passes.
+// aligned.  This form, on the CUDA cores, reads the weights from L1/L2 and
+// serves the receiver's first-layer term (S rows); `dense_staged` below
+// serves the edge and node passes on the tensor cores.
 template <int NT, int R, typename Epi>
 __device__ __forceinline__ void dense(const float* in, int ld, int K,
                                       const float* __restrict__ W, int Uo,
                                       int rows, Epi epi) {
+  ECNF_PROBE_SCOPE(probe, kProbeFirst);
   const Tile t = tile_of<NT>(Uo);
   const int tpr = t.tpr, G = t.G, og = t.og, rg = t.rg;
   int xo[R];
@@ -261,65 +302,185 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// `dense` for the edge and batched node passes, with the rows of `in` at
-// row_at(r, n, ld, slot_ld) and the weights staged in shared memory:
-// chunks of KC = min(kStageFloats / Uo, K) weight rows are copied with
-// cp.async two chunks ahead of their use into a ring of kStages buffers,
-// so the warps, which reach each weight row together, do not all stall
-// on L2 at once.  Every thread of the block must call it; it ends with a
-// barrier, so epi may overwrite `in`.  K is a multiple of KC.
-template <int NT, int R, typename Epi>
+// Tensor-core products in f32 accuracy ("3xTF32").  An f32 x is split
+// into two TF32 operands, hi = the TF32 value nearest x (ties away from
+// zero) and lo = x - hi (exact in f32; the tensor cores read its top 19
+// bits), and a product takes three TF32 mma's into an f32 accumulator:
+// a_lo b_hi + a_hi b_lo + a_hi b_hi.  What is dropped, a_lo b_lo and lo's
+// low bits, is ~2^-21 of a b, so the result keeps f32 accuracy; one TF32
+// product keeps ~3 decimal digits, which misses the port's f32 limits of
+// 1e-4.  (CUTLASS names the scheme OpMultiplyAddFastF32.)
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b over one 16 x 8 x 8 tile (mma.sync m16n8k8, TF32 in, f32 out).
+// Lane l = 4 g + t holds a = A[g][t], A[g + 8][t], A[g][t + 4],
+// A[g + 8][t + 4]; b = B[t][g], B[t + 4][g]; c = C[g][2 t], C[g][2 t + 1],
+// C[g + 8][2 t], C[g + 8][2 t + 1].
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The warp tiling of a dense pass over Uo outputs and `rows` rows, in
+// 16-row x 8-output tiles: a warp owns nt (<= kWarpCols) adjacent output
+// tiles and the row tiles wy, wy + wr, wy + 2 wr, ... of its row group wy;
+// wc warps span the outputs and wr = warps / wc the rows.  When there are
+// fewer row tiles than row groups, nt shrinks so that more warps span the
+// outputs.  Uo is a power of two, 8 <= Uo <= 32 * warps.
+constexpr int kWarpCols = 4;
+
+struct MmaLayout {
+  int nt, wc, wr;
+};
+
+__host__ __device__ inline MmaLayout mma_layout(int warps, int Uo, int rows) {
+  const int n8 = Uo / 8, tiles = (rows + 15) / 16;
+  int nt = n8 < kWarpCols ? n8 : kWarpCols;
+  while (nt > 1 && warps * nt > tiles * n8 && 2 * n8 <= warps * nt) nt /= 2;
+  return MmaLayout{nt, n8 / nt, warps * nt / n8};
+}
+
+// Row tiles per warp that a pass over `rows` rows and Uo outputs needs.
+__host__ __device__ inline int warp_row_tiles(int warps, int rows, int Uo) {
+  const int wr = mma_layout(warps, Uo, rows).wr;
+  return ((rows + 15) / 16 + wr - 1) / wr;
+}
+
+// out(r, :Uo) = in(r, :K) @ W for every row r < rows, on the tensor cores
+// in 3xTF32, then epi(r, o, (out[r][o], out[r][o + 1])) for even o.  Row r
+// of `in` is at row_at(r, n, ld, slot_ld); a warp takes MT row tiles at
+// most (`warp_row_tiles`), and the rows past `rows` in its last tile run
+// on clamped copies whose results are dropped.  The weights W [K, Uo] are
+// staged in shared memory: chunks of KC = min(kStageFloats / Uo, K) rows
+// are copied with cp.async kStages - 1 chunks ahead of their use into a
+// ring of kStages buffers.  An 8-deep step of the product takes logical
+// k = t and t + 4 of lane (g, t) from columns 2 t and 2 t + 1 (the sum
+// runs over the same k either way), so a lane reads its A fragment as two
+// 8-byte loads and its B fragment from two adjacent weight rows.  Weight
+// (k, o) is stored at k Uo + (o ^ 8 ((k / 2) & 3)) (mod Uo) of its chunk,
+// and `in` rows lie 8 floats past a multiple of 32 apart (ld = width + 8),
+// so both fragments' loads fall in distinct banks.  Every thread of the
+// block must call it; it ends with a barrier, so epi may overwrite `in`.
+// K and ld are multiples of 8, K a multiple of KC, `in` 8-byte and W
+// 16-byte aligned.
+template <int NT, int MT, typename Epi>
 __device__ __forceinline__ void dense_staged(const float* in, int ld, int n,
                                              int slot_ld, int K,
                                              const float* __restrict__ W, int Uo,
                                              int rows, float* stage, Epi epi) {
-  const Tile t = tile_of<NT>(Uo);
-  const int tpr = t.tpr, G = t.G, og = t.og, rg = t.rg;
-  int xo[R];
-  float4 acc[R];
+  ECNF_PROBE_SCOPE(probe, kProbeDense);
+  const MmaLayout m = mma_layout(NT / 32, Uo, rows);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = (warp % m.wc) * m.nt * 8;
+  const int wy = warp / m.wc;
+  const int sw = (t << 3) & (Uo - 1);  // the swizzle of weight rows 2 t, 2 t + 1 (mod 8)
+  int bcol[kWarpCols];
 #pragma unroll
-  for (int k = 0; k < R; ++k) {
-    xo[k] = row_at(min(rg + k * G, rows - 1), n, ld, slot_ld);
-    acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j = 0; j < kWarpCols; ++j) bcol[j] = (col0 + 8 * j + g) ^ sw;
+  int xo[MT][2];
+  bool live[MT];
+  float acc[MT][kWarpCols][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int r = (wy + i * m.wr) * 16 + g;
+    live[i] = r - g < rows;  // the same for the whole warp
+    xo[i][0] = row_at(min(r, rows - 1), n, ld, slot_ld) + 2 * t;
+    xo[i][1] = row_at(min(r + 8, rows - 1), n, ld, slot_ld) + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kWarpCols; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
   }
   const int KC = min(kStageFloats / Uo, K);
   const int n_chunks = K / KC;
+  const int u4 = Uo / 4;  // 16-byte units per weight row
+  // Every call commits one cp.async group, empty past the last chunk, so
+  // that waiting for all but the newest kStages - 2 groups always means
+  // "chunk ch has landed".
   auto issue = [&](int ch) {
-    const float4* src = reinterpret_cast<const float4*>(W + ch * KC * Uo);
-    float4* dst = reinterpret_cast<float4*>(stage + (ch % kStages) * kStageFloats);
-    for (int i = threadIdx.x; i < KC * tpr; i += NT) cp_async16(dst + i, src + i);
-    cp_async_commit();
-  };
-  issue(0);
-  if (n_chunks > 1) issue(1);
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (ch + 1 < n_chunks)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    __syncthreads();  // chunk ch has landed; chunk ch - 1's buffer is free
-    if (ch + 2 < n_chunks) issue(ch + 2);
-    const float4* W4 = reinterpret_cast<const float4*>(stage + (ch % kStages) * kStageFloats) + og;
-    const float* x = in + ch * KC;
-    for (int c = 0; c < KC; c += 4) {
-      const float4 w0 = W4[(c + 0) * tpr];
-      const float4 w1 = W4[(c + 1) * tpr];
-      const float4 w2 = W4[(c + 2) * tpr];
-      const float4 w3 = W4[(c + 3) * tpr];
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const float4 v = *reinterpret_cast<const float4*>(x + xo[k] + c);
-        fma4(acc[k], v.x, w0);
-        fma4(acc[k], v.y, w1);
-        fma4(acc[k], v.z, w2);
-        fma4(acc[k], v.w, w3);
+    if (ch < n_chunks) {
+      const float4* src = reinterpret_cast<const float4*>(W + ch * KC * Uo);
+      float* dst = stage + (ch % kStages) * kStageFloats;
+      // A thread copies one 16-byte unit o of rows k, k + NT / u4, ...
+      // (u4 divides NT).
+      const int o = 4 * (threadIdx.x % u4);
+      for (int k = threadIdx.x / u4; k < KC; k += NT / u4) {
+        cp_async16(dst + k * Uo + (o ^ ((((k >> 1) & 3) << 3) & (Uo - 1))), src + k * u4 + o / 4);
       }
     }
-  }
-  __syncthreads();
+    cp_async_commit();
+  };
 #pragma unroll
-  for (int k = 0; k < R; ++k)
-    if (rg + k * G < rows) epi(rg + k * G, og * 4, acc[k]);
+  for (int ch = 0; ch < kStages - 1; ++ch) issue(ch);
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    {
+      ECNF_PROBE_SCOPE(probe_wait, kProbeDenseWait);
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // chunk ch has landed; chunk ch - 1's buffer is free
+    }
+    issue(ch + kStages - 1);
+    const float* Ws = stage + (ch % kStages) * kStageFloats + 2 * t * Uo;
+    const float* x = in + ch * KC;
+    for (int c = 0; c < KC; c += 8) {
+      unsigned bh[kWarpCols][2], bl[kWarpCols][2];
+#pragma unroll
+      for (int j = 0; j < kWarpCols; ++j)
+        if (j < m.nt) {
+          split_tf32(Ws[c * Uo + bcol[j]], bh[j][0], bl[j][0]);
+          split_tf32(Ws[(c + 1) * Uo + bcol[j]], bh[j][1], bl[j][1]);
+        }
+      unsigned ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        if (live[i]) {
+          const float2 a0 = *reinterpret_cast<const float2*>(x + xo[i][0] + c);
+          const float2 a1 = *reinterpret_cast<const float2*>(x + xo[i][1] + c);
+          split_tf32(a0.x, ah[i][0], al[i][0]);
+          split_tf32(a1.x, ah[i][1], al[i][1]);
+          split_tf32(a0.y, ah[i][2], al[i][2]);
+          split_tf32(a1.y, ah[i][3], al[i][3]);
+        }
+      // The three products in turn, so that back-to-back mma's write
+      // different accumulators.
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < kWarpCols; ++j)
+          if (live[i] && j < m.nt) mma_tf32(acc[i][j], al[i], bh[j]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < kWarpCols; ++j)
+          if (live[i] && j < m.nt) mma_tf32(acc[i][j], ah[i], bl[j]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < kWarpCols; ++j)
+          if (live[i] && j < m.nt) mma_tf32(acc[i][j], ah[i], bh[j]);
+    }
+  }
+  {
+    ECNF_PROBE_SCOPE(probe_wait, kProbeDenseWait);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int r = (wy + i * m.wr) * 16 + g;
+#pragma unroll
+    for (int j = 0; j < kWarpCols; ++j)
+      if (j < m.nt) {
+        const int o = col0 + 8 * j + 2 * t;
+        if (r < rows) epi(r, o, make_float2(acc[i][j][0], acc[i][j][1]));
+        if (r + 8 < rows) epi(r + 8, o, make_float2(acc[i][j][2], acc[i][j][3]));
+      }
+  }
 }
 
 // dot(r) = act[r * ld : r * ld + U] . v for r < rows, one warp per row;
@@ -328,6 +489,7 @@ template <int NT, typename Emit>
 __device__ __forceinline__ void row_dots(const float* act, int ld,
                                          const float* __restrict__ v, int rows,
                                          int U, Emit emit) {
+  ECNF_PROBE_SCOPE(probe, kProbeRowDots);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   for (int r = warp; r < rows; r += NT / 32) {
@@ -343,28 +505,41 @@ __device__ __forceinline__ void store4(float* dst, const float4& a) {
   *reinterpret_cast<float4*>(dst) = a;
 }
 
+__device__ __forceinline__ void store2(float* dst, const float2& a) {
+  *reinterpret_cast<float2*>(dst) = a;
+}
+
 // tile rows = raw pre-activations of S slots x n rows (row s * n + j at
 // s * slot_ld + j * ld) -> primal rows silu(z + bias), tangent rows
-// silu'(z + bias) * raw.
+// silu'(z + bias) * raw.  A thread keeps one unit o (U divides NT).
 template <int NT>
 __device__ __forceinline__ void silu_lockstep(float* tile, int S, int n, int U,
                                               int ld, int slot_ld,
                                               const float* __restrict__ bias) {
-  for (int idx = threadIdx.x; idx < n * U; idx += NT) {
-    const int j = idx / U;
-    const int o = idx - j * U;
+  ECNF_PROBE_SCOPE(probe, kProbeSilu);
+  const int o = threadIdx.x % U;
+  for (int j = threadIdx.x / U; j < n; j += NT / U) {
     float* t = tile + j * ld + o;
     const float z = *t + __ldg(bias + o);
     const float sg = sigmoid(z);
     const float ds = sg * (1.f + z * (1.f - sg));
-    for (int s = 1; s < S; ++s) t[s * slot_ld] *= ds;
+    // Four slots at a time, so that their loads are in flight together.
+    int s = 1;
+    for (; s + 4 <= S; s += 4) {
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = t[(s + q) * slot_ld];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) t[(s + q) * slot_ld] = v[q] * ds;
+    }
+    for (; s < S; ++s) t[s * slot_ld] *= ds;
     *t = z * sg;
   }
 }
 
 // The time ConcatDense of every node and slot: hc = hb @ cd_h, plus
 // temb @ cd_t + cd_b on the primal.  Ends with a barrier.
-template <int NT, int R>
+template <int NT, int MT>
 __device__ __forceinline__ void block_prologue(const Dims& d, const Layout& y,
                                const float* __restrict__ W, float* sm,
                                const Plan& p, int S) {
@@ -379,14 +554,12 @@ __device__ __forceinline__ void block_prologue(const Dims& d, const Layout& y,
   __syncthreads();
   float* hc = sm + p.hc;
   const float* cd_b = W + y.cd_b;
-  dense_staged<NT, R>(sm + p.hb, p.lh, S * d.N, 0, H, W + y.cd_h, H, S * d.N, sm + p.stage, [&](int r, int o, float4 a) {
+  dense_staged<NT, MT>(sm + p.hb, p.lh, S * d.N, 0, H, W + y.cd_h, H, S * d.N, sm + p.stage, [&](int r, int o, float2 a) {
     if (r < d.N) {
       a.x = (a.x + tb[o + 0]) + __ldg(cd_b + o + 0);
       a.y = (a.y + tb[o + 1]) + __ldg(cd_b + o + 1);
-      a.z = (a.z + tb[o + 2]) + __ldg(cd_b + o + 2);
-      a.w = (a.w + tb[o + 3]) + __ldg(cd_b + o + 3);
     }
-    store4(hc + r * p.lh + o, a);
+    store2(hc + r * p.lh + o, a);
   });
   __syncthreads();
 }
@@ -396,10 +569,10 @@ __device__ __forceinline__ void block_prologue(const Dims& d, const Layout& y,
 // ConcatDense output (block_prologue).  Writes slot s's new coordinates of
 // node i to vec_dst[s * vec_stride + :D] and its gated message sum m_i to
 // mi_dst[s * mi_stride + :U]; `node_update` then runs phi_h.  The edge
-// passes take R rows per thread (S * N <= R * G for G = row_groups(NT, U)
-// and row_groups(NT, H)); the receiver's first-layer term, S rows, takes
-// one.  Ends with a barrier.
-template <int NT, int R>
+// passes take MT row tiles per warp (S * N rows, see `warp_row_tiles`);
+// the receiver's first-layer term, S rows on the CUDA cores, takes one row
+// per thread (S <= row_groups(NT, U)).  Ends with a barrier.
+template <int NT, int MT>
 __device__ __forceinline__ void receiver_pass(const Dims& d, const Layout& y,
                               const float* __restrict__ W, float* sm,
                               const Plan& p, int S, int i, const float* vec,
@@ -466,21 +639,32 @@ __device__ __forceinline__ void receiver_pass(const Dims& d, const Layout& y,
   dense<NT, 1>(hc + i * lh, N * lh, H, W + y.e_r, U, S, [&](int r, int o, float4 a) {
     store4(bi + r * lu + o, a);
   });
-  dense_staged<NT, R>(hc, lh, SN, 0, H, W + y.e_s, U, SN, stage, [&](int r, int o, float4 a) {
-    store4(tile + r * lu + o, a);
+  dense_staged<NT, MT>(hc, lh, SN, 0, H, W + y.e_s, U, SN, stage, [&](int r, int o, float2 a) {
+    store2(tile + r * lu + o, a);
   });
   __syncthreads();
   {
     const float* e_l = W + y.e_l;
     const float* e_b = W + y.e_b[0];
-    for (int idx = tid; idx < N * U; idx += NT) {
-      const int j = idx / U;
-      const int o = idx - j * U;
-      const float el = __ldg(e_l + o);
+    const int o = tid % U;
+    const float el = __ldg(e_l + o);
+    for (int j = tid / U; j < N; j += NT / U) {
       const float z = ((tile[j * lu + o] + bi[o]) + l2[j] * el) + __ldg(e_b + o);
       const float sg = sigmoid(z);
       const float ds = sg * (1.f + z * (1.f - sg));
-      for (int s = 1; s < S; ++s) {
+      // Four slots at a time, as in silu_lockstep.
+      int s = 1;
+      for (; s + 4 <= S; s += 4) {
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = (s + q) * N + j;
+          v[q] = (tile[r * lu + o] + bi[(s + q) * lu + o]) + l2t[r] * el;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) tile[((s + q) * N + j) * lu + o] = ds * v[q];
+      }
+      for (; s < S; ++s) {
         const int r = s * N + j;
         tile[r * lu + o] = ds * ((tile[r * lu + o] + bi[s * lu + o]) + l2t[r] * el);
       }
@@ -491,8 +675,8 @@ __device__ __forceinline__ void receiver_pass(const Dims& d, const Layout& y,
 
   // phi_e tail: m and its tangents.
   for (int l = 1; l < L; ++l) {
-    dense_staged<NT, R>(tile, lu, SN, 0, U, W + y.e_tail[l - 1], U, SN, stage, [&](int r, int o, float4 a) {
-      store4(tile + r * lu + o, a);
+    dense_staged<NT, MT>(tile, lu, SN, 0, U, W + y.e_tail[l - 1], U, SN, stage, [&](int r, int o, float2 a) {
+      store2(tile + r * lu + o, a);
     });
     __syncthreads();
     silu_lockstep<NT>(tile, S, N, U, lu, N * lu, W + y.e_b[l]);
@@ -517,9 +701,8 @@ __device__ __forceinline__ void receiver_pass(const Dims& d, const Layout& y,
   __syncthreads();
   {
     const float sqrt_deg = sqrtf(static_cast<float>(N - 1));
-    for (int idx = tid; idx < S * U; idx += NT) {
-      const int s = idx / U;
-      const int u = idx - s * U;
+    const int u = tid % U;
+    for (int s = tid / U; s < S; s += NT / U) {
       float acc = 0.f;
       for (int j = 0; j < N; ++j) {
         if (j == i) continue;
@@ -535,8 +718,8 @@ __device__ __forceinline__ void receiver_pass(const Dims& d, const Layout& y,
 
   // phi_x chain and its Dense(1) output phi.
   for (int l = 0; l < L; ++l) {
-    dense_staged<NT, R>(tile, lu, SN, 0, U, W + y.x_tail[l], U, SN, stage, [&](int r, int o, float4 a) {
-      store4(tile + r * lu + o, a);
+    dense_staged<NT, MT>(tile, lu, SN, 0, U, W + y.x_tail[l], U, SN, stage, [&](int r, int o, float2 a) {
+      store2(tile + r * lu + o, a);
     });
     __syncthreads();
     silu_lockstep<NT>(tile, S, N, U, lu, N * lu, W + y.x_b[l]);
@@ -602,7 +785,7 @@ __device__ __forceinline__ void receiver_pass(const Dims& d, const Layout& y,
 // mi + (s * mi_slot + j) * lu (overwritten), its hc row at
 // hc + s * hc_slot + j * lh, and its new h written to
 // h_dst + s * h_slot + j * h_ld.  Ends with a barrier.
-template <int NT, int R>
+template <int NT, int MT>
 __device__ __forceinline__ void node_update(const Dims& d, const Layout& y,
                                             const float* __restrict__ W,
                                             float* sm, const Plan& p, int S,
@@ -614,36 +797,34 @@ __device__ __forceinline__ void node_update(const Dims& d, const Layout& y,
   const int mi_ld = mi_slot * lu;
   float* stage = sm + p.stage;
   auto mi_row = [&](int r) { return mi + row_at(r, n, lu, mi_ld); };
-  dense_staged<NT, R>(mi, lu, n, mi_ld, U, W + y.h_m, U, rows, stage, [&](int r, int o, float4 a) {
-    store4(mi_row(r) + o, a);
+  dense_staged<NT, MT>(mi, lu, n, mi_ld, U, W + y.h_m, U, rows, stage, [&](int r, int o, float2 a) {
+    store2(mi_row(r) + o, a);
   });
   // The same thread owns the same (row, outputs) in both passes.
-  dense_staged<NT, R>(hc, lh, n, hc_slot, H, W + y.h_h, U, rows, stage, [&](int r, int o, float4 a) {
-    float4* dst = reinterpret_cast<float4*>(mi_row(r) + o);
-    float4 v = *dst;
+  dense_staged<NT, MT>(hc, lh, n, hc_slot, H, W + y.h_h, U, rows, stage, [&](int r, int o, float2 a) {
+    float2* dst = reinterpret_cast<float2*>(mi_row(r) + o);
+    float2 v = *dst;
     v.x += a.x;
     v.y += a.y;
-    v.z += a.z;
-    v.w += a.w;
     *dst = v;
   });
   __syncthreads();
   silu_lockstep<NT>(mi, S, n, U, lu, mi_ld, W + y.h_b[0]);
   __syncthreads();
   for (int l = 1; l < L; ++l) {
-    dense_staged<NT, R>(mi, lu, n, mi_ld, U, W + y.h_tail[l - 1], U, rows, stage,
-                        [&](int r, int o, float4 a) { store4(mi_row(r) + o, a); });
+    dense_staged<NT, MT>(mi, lu, n, mi_ld, U, W + y.h_tail[l - 1], U, rows, stage,
+                         [&](int r, int o, float2 a) { store2(mi_row(r) + o, a); });
     __syncthreads();
     silu_lockstep<NT>(mi, S, n, U, lu, mi_ld, W + y.h_b[l]);
     __syncthreads();
   }
   const float* h_b = W + y.h_b[L];
-  dense_staged<NT, R>(mi, lu, n, mi_ld, U, W + y.h_out, H, rows, stage, [&](int r, int o, float4 a) {
+  dense_staged<NT, MT>(mi, lu, n, mi_ld, U, W + y.h_out, H, rows, stage, [&](int r, int o, float2 a) {
     const float* hcr = hc + row_at(r, n, lh, hc_slot) + o;
     float* dst = h_dst + row_at(r, n, h_ld, h_slot) + o;
-    const float v[4] = {a.x, a.y, a.z, a.w};
+    const float v[2] = {a.x, a.y};
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
+    for (int q = 0; q < 2; ++q)
       dst[q] = r < n ? (v[q] + __ldg(h_b + o + q)) + hcr[q] : v[q] + hcr[q];
   });
   __syncthreads();

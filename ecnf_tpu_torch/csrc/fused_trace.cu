@@ -24,11 +24,19 @@
 // kernel adds a sample's partials in chunk order, so two runs agree bit
 // for bit.
 //
-// What bounds it on an H100: f32 FMAs on the CUDA cores.  At LJ13 width
+// What bounds it on an H100: tensor-core operations.  At LJ13 width
 // (N=13, D=3, H=64, U=128, three blocks of [128]*3, B=48) one launch is
 // ~170 GFLOP (B N^2 edge rows x 39 columns x 3 blocks through a [64, 128]
-// and five [128, 128] layers) against a few MB of memory traffic; each
-// weight float4 read feeds up to 64 FMAs.
+// and five [128, 128] layers) against a few MB of memory traffic.  The
+// products must be f32-accurate, so every dense pass runs in 3xTF32 on the
+// tensor cores (three TF32 mma's per product, `dense_staged` in
+// egnn_device.cuh): its floor is 3 x FLOP at the card's mma.sync TF32
+// rate (`kernel_probe.py` measures it; the 495 TFLOP/s TF32 peak is
+// wgmma's), against FLOP at 67 TFLOP/s for f32 FMAs.  In practice each
+// warp's stream of fragment loads, operand splits and mma's bounds it
+// (PERF.md).  The S * N rows of a receiver are cut into 16-row tiles (the
+// last one padded), so C is picked to waste few padded rows as well as
+// few thread-block waves.
 
 #include <cuda_runtime.h>
 
@@ -41,15 +49,19 @@ namespace {
 using namespace ecnf;
 
 constexpr int kThreads = 512;
-// Rows per thread of the edge passes: one kernel per choice.
-constexpr int kRowChoices[] = {4, 8, 12, 16};
+constexpr int kWarps = kThreads / 32;
+// Row tiles per warp of the dense passes: one kernel per choice.  Four or
+// more (QM9's [256, 256] layers at five columns, 64 accumulators a thread)
+// spill past the 128 registers a thread of 512 may hold.
+constexpr int kTileChoices[] = {1, 2, 3};
 
-template <int R>
+template <int MT>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_trace_kernel(const Dims d, const Layout y, const Plan p, int n_blocks,
                        int cols, int group, const float* x, const float* h0,
                        const float* temb, const float* W, const float* fs,
                        float* v, float* partial) {
+  ECNF_PROBE_SCOPE(probe, kProbeTotal);
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int N = d.N, D = d.D, H = d.H, ND = N * D;
@@ -100,13 +112,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int blk = 0; blk < n_blocks; ++blk) {
     const float* Wb = W + static_cast<size_t>(blk) * y.size;
-    block_prologue<kThreads, R>(d, y, Wb, sm, p, S);
+    block_prologue<kThreads, MT>(d, y, Wb, sm, p, S);
     for (int i = 0; i < N; ++i) {
       const int i0 = i - i % group;
-      receiver_pass<kThreads, R>(d, y, Wb, sm, p, S, i, vec, vec_new + i * D, ND,
+      receiver_pass<kThreads, MT>(d, y, Wb, sm, p, S, i, vec, vec_new + i * D, ND,
                                  sm + p.mi + (i - i0) * p.lu, group * p.lu);
       if (i - i0 + 1 == group || i == N - 1)
-        node_update<kThreads, R>(d, y, Wb, sm, p, S, i - i0 + 1, sm + p.mi, group,
+        node_update<kThreads, MT>(d, y, Wb, sm, p, S, i - i0 + 1, sm + p.mi, group,
                                  sm + p.hc + i0 * p.lh, N * p.lh, hb + i0 * p.lh,
                                  p.lh, N * p.lh);
     }
@@ -140,14 +152,15 @@ __global__ void sum_partials(int B, int Q, const float* partial, float* div) {
   div[b] = acc;
 }
 
-// Rows per thread of the edge passes for S slots (0: too many slots).
-// The node passes take one row per thread, so S may not exceed the row
-// groups of a pass over U or H outputs.
-int edge_rows(const Dims& d, int S) {
-  const int G = row_groups(kThreads, d.U);
-  if (S > G || S > row_groups(kThreads, d.H)) return 0;
-  for (int R : kRowChoices)
-    if (R * G >= S * d.N) return R;
+// Row tiles per warp of the dense passes for S slots (0: too many slots).
+// The passes over U outputs need the most (H <= U), and the receiver's
+// first-layer term takes one row per thread, so S may not exceed the row
+// groups of a pass over U outputs.
+int row_tiles(const Dims& d, int S) {
+  if (S > row_groups(kThreads, d.U)) return 0;
+  const int need = warp_row_tiles(kWarps, S * d.N, d.U);
+  for (int MT : kTileChoices)
+    if (MT >= need) return MT;
   return 0;
 }
 
@@ -171,18 +184,18 @@ int smem_limit() {
   return smem;
 }
 
-template <int R>
+template <int MT>
 cudaError_t launch(const Dims& d, int n_blocks, int cols, int group, int B,
                    const float* x, const float* h0, const float* temb,
                    const float* w, const float* fs, float* v, float* partial,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(d, cols + 1, group);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_trace_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_trace_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int Q = (d.N * d.D + cols - 1) / cols;
-  fused_trace_kernel<R><<<dim3(Q, B), kThreads, smem, stream>>>(
+  fused_trace_kernel<MT><<<dim3(Q, B), kThreads, smem, stream>>>(
       d, make_layout(d.H, d.T, d.U, d.L), make_plan(d, cols + 1, group), n_blocks,
       cols, group, x, h0, temb, w, fs, v, partial);
   return cudaGetLastError();
@@ -195,9 +208,9 @@ extern "C" int ecnf_weight_floats(int H, int T, int U, int L) {
 }
 
 // Columns per thread block: the C that minimises (thread blocks on the
-// busiest SM) x (padded edge rows per receiver + 2 N, a rough price of a
-// receiver's node-level work and barriers), within the shared memory.
-// 0 if the shapes are not supported.
+// busiest SM) x (edge rows per receiver, padded to whole row tiles of every
+// warp, + 2 N, a rough price of a receiver's node-level work and
+// barriers), within the shared memory.  0 if the shapes are not supported.
 extern "C" int ecnf_fused_trace_columns(int B, int N, int D, int H, int T,
                                         int U) {
   if (B < 1 || !supported(N, D, H, T, U, 1)) return 0;
@@ -208,14 +221,14 @@ extern "C" int ecnf_fused_trace_columns(int B, int N, int D, int H, int T,
     return 0;
   const Dims d{N, D, H, T, U, 1, 1.f};
   const int ND = N * D;
-  const int G = row_groups(kThreads, U);
   int best = 0;
   long best_cost = LONG_MAX;
   for (int C = 1; C <= ND; ++C) {
-    const int R = edge_rows(d, C + 1);
-    if (R == 0 || group_size(d, C + 1, smem) == 0) break;
+    const int MT = row_tiles(d, C + 1);
+    if (MT == 0 || group_size(d, C + 1, smem) == 0) break;
     const long blocks = static_cast<long>(B) * ((ND + C - 1) / C);
-    const long cost = (blocks + sms - 1) / sms * (R * G + 2 * N);
+    const int padded = 16 * MT * mma_layout(kWarps, U, (C + 1) * N).wr;
+    const long cost = (blocks + sms - 1) / sms * (padded + 2 * N);
     if (cost < best_cost) {
       best_cost = cost;
       best = C;
@@ -243,11 +256,10 @@ extern "C" int ecnf_fused_trace(int B, int N, int D, int H, int T, int U,
   const int g = group_size(d, cols + 1, smem_limit());
   if (g == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  switch (edge_rows(d, cols + 1)) {
-    case 4: err = launch<4>(d, n_blocks, cols, g, B, x, h0, temb, w, fs, v, partial, s); break;
-    case 8: err = launch<8>(d, n_blocks, cols, g, B, x, h0, temb, w, fs, v, partial, s); break;
-    case 12: err = launch<12>(d, n_blocks, cols, g, B, x, h0, temb, w, fs, v, partial, s); break;
-    case 16: err = launch<16>(d, n_blocks, cols, g, B, x, h0, temb, w, fs, v, partial, s); break;
+  switch (row_tiles(d, cols + 1)) {
+    case 1: err = launch<1>(d, n_blocks, cols, g, B, x, h0, temb, w, fs, v, partial, s); break;
+    case 2: err = launch<2>(d, n_blocks, cols, g, B, x, h0, temb, w, fs, v, partial, s); break;
+    case 3: err = launch<3>(d, n_blocks, cols, g, B, x, h0, temb, w, fs, v, partial, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return static_cast<int>(err);

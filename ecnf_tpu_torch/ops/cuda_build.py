@@ -2,10 +2,11 @@
 
 Each source is compiled with nvcc for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``build/kernels/`` at the
-repository root, keyed by a hash of the source and of every ``.cuh``
-header beside it; the library is loaded with ctypes.  Nothing here runs
-when a module is imported: the CPU tests import every module and have no
-nvcc.
+repository root, keyed by a hash of the source, of every ``.cuh`` header
+beside it and of the macros in ``ECNF_CUDA_DEFINES`` (space-separated
+names, each passed as ``-D``; `kernel_probe.py` builds with
+``ECNF_PROBE``); the library is loaded with ctypes.  Nothing here runs when
+a module is imported: the CPU tests import every module and have no nvcc.
 """
 import ctypes
 import functools
@@ -36,11 +37,16 @@ def _nvcc() -> str:
     return found
 
 
+def _defines() -> Tuple[str, ...]:
+    return tuple(f"-D{name}" for name in os.environ.get("ECNF_CUDA_DEFINES", "").split())
+
+
 def _digest(source: Path) -> str:
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(_CSRC.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
+    h.update(" ".join(_defines()).encode())
     return h.hexdigest()[:16]
 
 
@@ -60,7 +66,7 @@ def build_library(name: str) -> Tuple[Path, float, str]:
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+        "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", *_defines(),
         "-I", str(_CSRC), "-o", str(tmp), str(source),
     ]
     start = time.perf_counter()

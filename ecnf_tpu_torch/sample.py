@@ -58,8 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="n_invariant_feat_hidden")
     p.add_argument("--time-embedding-dim", type=positive_int, default=8)
     p.add_argument("--base-scale", type=float, default=1.0)
-    p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: cuda when available)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; the CPU only when asked for (--device cpu)")
     return p
 
 
@@ -87,7 +87,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the sampler; returns ``samples [n, N*D]``, ``log_q [n]`` (or
     None), ``seconds`` and ``device`` besides printing a summary."""
     args = build_parser().parse_args(argv)
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("ecnf_tpu_torch.sample: no CUDA device; pass --device cpu to run on the CPU")
     cnf = build_from_args(args, device)
     cfg = SolveConfig(
         use_fixed_step_size=True, step_size=args.step_size, method=args.method,

@@ -7,6 +7,9 @@ tests/test_torch_fused_gpu.py`` (the suite's conftest imports JAX).
 Limits, all f32: the EGCL forward, max |kernel - plain| / max |plain|
 1e-4; the fused trace, value rel 1e-4 and the network's share of the
 trace, ``div + dim * final_scaling``, rel 1e-4 of its largest magnitude.
+Both kernels take their dense products on the tensor cores in 3xTF32, in
+16-row tiles: the ragged cases put S * N rows (S = columns + 1 slots) that
+are not a multiple of 16 through them.
 """
 import math
 
@@ -20,6 +23,14 @@ from ecnf_tpu_torch.ops import egcl, fused_trace
 LIMIT = 1e-4
 # (n_nodes, blocks, mlp_units, hidden, batch): small, and LJ13 width.
 SHAPES = [(5, 2, (32, 32), 16, 6), (13, 3, (128, 128, 128), 64, 8)]
+# The EGCL forward also at QM9 width (19 rows: two row tiles, one ragged).
+EGCL_SHAPES = SHAPES + [(19, 2, (256,) * 4, 32, 4)]
+# (n_nodes, blocks, mlp_units, hidden, batch, columns with S * N % 16 != 0)
+RAGGED = [
+    (5, 2, (32, 32), 16, 3, 2),
+    (13, 2, (128, 128, 128), 64, 3, 8),
+    (19, 2, (256,) * 4, 32, 2, 4),
+]
 
 
 @pytest.fixture
@@ -63,7 +74,7 @@ def _rel(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,blocks,units,hidden,batch", SHAPES)
+@pytest.mark.parametrize("n,blocks,units,hidden,batch", EGCL_SHAPES)
 def test_egcl_kernel_matches_plain_on_cuda(cuda, n, blocks, units, hidden, batch):
     cnf = _cnf(n, blocks, units, hidden, cuda)
     x, t, f = _inputs(n, batch, cuda)
@@ -104,6 +115,49 @@ def test_fused_trace_kernel_matches_plain_on_cuda(cuda, n, blocks, units, hidden
     v2, d2 = cnf.fused_value_and_div(x, t, f, weights=weights)
     torch.testing.assert_close(v2, v, rtol=0, atol=0)
     torch.testing.assert_close(d2, d, rtol=0, atol=0)
+
+
+def _largest_columns(cnf, x, t, f, weights):
+    """The most columns per thread block that the kernel launches with."""
+    for cols in range(x.shape[1], 0, -1):
+        try:
+            fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, weights, columns_per_block=cols)
+        except RuntimeError:
+            continue
+        return cols
+    raise AssertionError("no column count launches")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,blocks,units,hidden,batch,ragged", RAGGED)
+def test_fused_trace_ragged_rows_and_chunkings(cuda, n, blocks, units, hidden, batch, ragged):
+    assert (ragged + 1) * n % 16 != 0
+    cnf = _cnf(n, blocks, units, hidden, cuda, seed=n)
+    x, t, f = _inputs(n, batch, cuda, seed=n + 1)
+    weights = cnf.fused_weights()
+    v_p, d_p = fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, weights, use_kernel=False)
+    offset = 3 * cnf.field.egnn.final_scaling.detach()
+    default = fused_trace.default_columns(0, batch, n, 3, hidden, 8, units[0])
+    largest = _largest_columns(cnf, x, t, f, weights)
+    assert largest >= max(default, ragged)
+    v, d = fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, weights, columns_per_block=1)
+    torch.cuda.synchronize()
+    assert _rel(v, v_p) <= LIMIT
+    assert _rel(d + offset, d_p + offset) <= LIMIT
+    for cols in (default, largest, ragged):
+        v_c, d_c = fused_trace.egnn_value_and_div_fused(
+            cnf.field, x, t, f, weights, columns_per_block=cols
+        )
+        torch.cuda.synchronize()
+        torch.testing.assert_close(v_c, v, rtol=0, atol=0)
+        assert _rel(d_c + offset, d + offset) <= LIMIT
+        assert _rel(d_c + offset, d_p + offset) <= LIMIT
+        # Deterministic: a second run agrees bit for bit.
+        v2, d2 = fused_trace.egnn_value_and_div_fused(
+            cnf.field, x, t, f, weights, columns_per_block=cols
+        )
+        torch.testing.assert_close(v2, v_c, rtol=0, atol=0)
+        torch.testing.assert_close(d2, d_c, rtol=0, atol=0)
 
 
 @pytest.mark.gpu

@@ -158,3 +158,13 @@ def test_entry_point_fused_trace_matches_structured_path():
     a = sample.main(sample_only + ["--fused-trace"])["samples"]
     b = sample.main(sample_only)["samples"]
     np.testing.assert_array_equal(a, b)
+
+
+def test_entry_point_refuses_the_cpu_unless_asked(monkeypatch):
+    # Without a card and without --device cpu the sampler exits non-zero
+    # instead of running on the CPU.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        sample.main(["--n-nodes", "5", "--n-samples", "2", "--batch-size", "2"])
+    assert exc.value.code not in (None, 0)
+    assert "--device cpu" in str(exc.value.code)

@@ -7,11 +7,14 @@ Phases, one or more lines each:
 2. build: compile the three CUDA kernels from ``ecnf_tpu_torch/csrc``, one
    nvcc each, all at once, with their register and spill lines and the
    count of tensor-core (HMMA) instructions in each library
-   (``cuobjdump -sass``); the f32 kernels must have some, since their
-   dense passes run on the tensor cores in 3xTF32;
+   (``cuobjdump -sass``); each must have some, since every kernel's dense
+   passes run on the tensor cores (bf16, or f32 in 3xTF32);
 3. kernel vs plain: the edge-tangent kernel against
    `edge_tangent_reference` at the LJ13 and QM9 shapes, in float32 and
-   bfloat16, with times;
+   bfloat16, with times, the default columns per thread block and its
+   shared memory and blocks per SM; then the kernel at every column count
+   per thread block that launches, each checked against the plain version
+   at the same limit and timed;
 4. serving: ``python -m ecnf_tpu_torch.sample``'s code path at the full
    LJ13 width (3 blocks of [128]*3, hidden 64, bf16, batch 48, rk4 step
    0.05, exact trace), with its kernel launches counted; then the same
@@ -35,7 +38,8 @@ Phases, one or more lines each:
 9. timing of the serving solve with CUDA events, in turns (a, b, b, a,
    twice; median): the structured path's kernel against its plain
    version (bf16), and the fused path's kernel against its plain version,
-   with the fused kernel's share of the fused solve.
+   with the edge kernel's share of the structured solve and the fused
+   kernel's share of the fused solve.
 
 Bounds: the larger of the bytes a kernel must move (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
@@ -225,6 +229,12 @@ def nbytes(*objs) -> int:
     return total
 
 
+def edge_errors(kernel, plain):
+    """(max |kernel - plain|, that over max |plain|) of both outputs."""
+    abs_err = max((k - p).abs().max().item() for k, p in zip(kernel, plain))
+    return abs_err, abs_err / max(p.abs().max().item() for p in plain)
+
+
 def phase_kernel_vs_plain(et) -> dict:
     results = {}
     for shape_name, shape in (("lj13", LJ13_EDGE), ("qm9", QM9_EDGE)):
@@ -233,9 +243,7 @@ def phase_kernel_vs_plain(et) -> dict:
             kernel = et.edge_tangent(**args)
             plain = et.edge_tangent_reference(**args)
             torch.cuda.synchronize()
-            abs_err = max((k - p).abs().max().item() for k, p in zip(kernel, plain))
-            scale = max(p.abs().max().item() for p in plain)
-            rel = abs_err / scale
+            abs_err, rel = edge_errors(kernel, plain)
             reps = 20 if shape_name == "lj13" else 5
             ms = cuda_ms(lambda: et.edge_tangent(**args), reps)
             plain_ms = cuda_ms(lambda: et.edge_tangent_reference(**args), reps)
@@ -243,15 +251,41 @@ def phase_kernel_vs_plain(et) -> dict:
             K, B, N, U, L = (shape[k] for k in ("K", "B", "N", "U", "L"))
             b = bound(edge_flop(B * N * N, K, L, U), nbytes(args, kernel),
                       *((BF16_FLOPS, 1) if dtype == torch.bfloat16 else (TF32_FLOPS, 3)))
+            cols = et.default_columns(0, dtype, K, B, N, U, L)
+            plan = et.launch_plan(0, dtype, K, B, N, U, L, cols)
+            if dtype == torch.bfloat16:
+                residuals = "silu' rows streamed into shared memory with the weights"
+            elif plan["staged"]:
+                residuals = "residuals staged in shared memory"
+            else:
+                residuals = "residuals read from global memory"
             print(
                 f"[kernel] {shape_name} {shape} {name}: max_abs_err={abs_err:.3e} "
                 f"rel={rel:.3e} (limit {EDGE_LIMITS[dtype]:.0e}) "
-                f"kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us {rate_line(b, ms)}",
+                f"kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us {rate_line(b, ms)}; "
+                f"{cols} columns per thread block: {plan['smem_bytes']} B of shared memory, "
+                f"{plan['blocks_per_sm']} blocks per SM, {plan['row_tiles']} row tiles per warp, "
+                f"{residuals}",
                 flush=True,
             )
             check(math.isfinite(rel) and rel <= EDGE_LIMITS[dtype],
                   f"edge_tangent {shape_name} {name} rel error {rel:.3e}")
             results[(shape_name, name)] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **b)
+            # Every column count per thread block that launches (the default
+            # is the kernel's cost model's pick; this shows what each costs).
+            sweep = []
+            for c in range(1, K + 1):
+                try:
+                    et.launch_plan(0, dtype, K, B, N, U, L, c)
+                except ValueError:
+                    break
+                run = lambda: et.edge_tangent(**args, columns_per_block=c)
+                _, rel_c = edge_errors(run(), plain)
+                check(math.isfinite(rel_c) and rel_c <= EDGE_LIMITS[dtype],
+                      f"edge_tangent {shape_name} {name} columns {c}: rel error {rel_c:.3e}")
+                sweep.append(f"{c}:{cuda_ms(run, max(reps // 4, 2)):.3f}")
+            print(f"[kernel] {shape_name} {name} ms per launch by columns per thread block "
+                  f"(each within the limit): {' '.join(sweep)}", flush=True)
             del args, kernel, plain
             torch.cuda.empty_cache()
     return results
@@ -481,9 +515,11 @@ def phase_fused_serving(sample, sampling, f32) -> int:
     return launches
 
 
-def phase_timing(sample, sampling, fused_trace, card: str, fused_ms: float) -> dict:
+def phase_timing(sample, sampling, fused_trace, card: str, edge_ms: float,
+                 fused_ms: float) -> dict:
     """Serving solve per path, ms (median of turns a, b, b, a, twice).
-    ``fused_ms`` is the fused kernel's time per launch from phase 7."""
+    ``edge_ms`` and ``fused_ms`` are the edge kernel's (LJ13 bf16) and the
+    fused kernel's times per launch from phases 3 and 7."""
     args = sample.build_parser().parse_args(LJ13_ARGS)
     cnf = sample.build_from_args(args, torch.device("cuda"))
     feats = torch.zeros((48, 13), dtype=torch.int64, device="cuda")
@@ -517,6 +553,12 @@ def phase_timing(sample, sampling, fused_trace, card: str, fused_ms: float) -> d
             f"(turns {[round(t, 1) for t in ts]}) on {card}",
             flush=True,
         )
+    share = RK4_LAUNCHES * edge_ms / medians["kernel"]
+    print(
+        f"[timing] structured kernel path: {RK4_LAUNCHES} edge launches x {edge_ms:.3f} ms "
+        f"(phase 3) = {RK4_LAUNCHES * edge_ms:.1f} ms, {100 * share:.1f}% of the solve",
+        flush=True,
+    )
     share = FUSED_LAUNCHES * fused_ms / medians["fused kernel"]
     print(
         f"[timing] fused kernel path: {FUSED_LAUNCHES} launches x {fused_ms:.3f} ms (phase 7) = "
@@ -550,14 +592,15 @@ def main() -> None:
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
-        check(hmma > 0 or name == "edge_tangent", f"{name}: no tensor-core instructions")
+        check(hmma > 0, f"{name}: no tensor-core instructions")
 
     edge = phase_kernel_vs_plain(et)
     launches, f32 = phase_serving(sample, sampling)
     egcl_results = phase_egcl(egcl, ode)
     fused = phase_fused_kernel(fused_trace)
     fused_launches = phase_fused_serving(sample, sampling, f32)
-    phase_timing(sample, sampling, fused_trace, card, fused["lj13"]["ms"])
+    phase_timing(sample, sampling, fused_trace, card, edge[("lj13", "bfloat16")]["ms"],
+                 fused["lj13"]["ms"])
 
     # Per kernel, its main-path shapes: the LJ13 structured solve's bf16
     # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches)

@@ -12,12 +12,15 @@ tail, the phi_x chain and the gate, returning ``phi_t [K, B, N, N]`` and
 - On CPU tensors it runs `edge_tangent_reference`, the same math in plain
   torch ops, which is also the kernel's oracle.
 
-``edge_tangent.launch_count`` counts kernel launches.
+A thread block of the kernel takes C tangent columns of one (receiver,
+sample); C comes from the kernel's cost model (`default_columns`) unless
+the caller passes ``columns_per_block``.  ``edge_tangent.launch_count``
+counts kernel launches.
 """
 import ctypes
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -81,12 +84,44 @@ def edge_tangent_reference(
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = load_library("edge_tangent").ecnf_edge_tangent
-    ptr = ctypes.c_void_p
-    fn.argtypes = [ctypes.c_int] * 6 + [ptr] * 16
-    fn.restype = ctypes.c_int
-    return fn
+def _library():
+    lib = load_library("edge_tangent")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ecnf_edge_tangent.argtypes = [i32] * 7 + [ptr] * 16
+    lib.ecnf_edge_tangent.restype = i32
+    lib.ecnf_edge_tangent_columns.argtypes = [i32] * 6
+    lib.ecnf_edge_tangent_columns.restype = i32
+    lib.ecnf_edge_tangent_plan.argtypes = [i32] * 7 + [ctypes.POINTER(i32)] * 4
+    lib.ecnf_edge_tangent_plan.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def default_columns(device_index: int, dtype: torch.dtype, K: int, B: int, N: int, U: int,
+                    L: int) -> int:
+    """Tangent columns per thread block that the kernel's cost model picks
+    for a card."""
+    with torch.cuda.device(device_index):
+        cols = _library().ecnf_edge_tangent_columns(_DTYPE_CODES[dtype], K, B, N, U, L)
+    if cols < 1:
+        raise ValueError(f"edge_tangent: unsupported shapes K={K} B={B} N={N} U={U} L={L}")
+    return cols
+
+
+def launch_plan(device_index: int, dtype: torch.dtype, K: int, B: int, N: int, U: int,
+                L: int, columns: int) -> dict:
+    """How a launch with ``columns`` per thread block sits on the card: its
+    dynamic shared memory per block, thread blocks per SM, row tiles per
+    warp, and whether the residual rows are staged in shared memory."""
+    out = [ctypes.c_int() for _ in range(4)]
+    with torch.cuda.device(device_index):
+        err = _library().ecnf_edge_tangent_plan(
+            _DTYPE_CODES[dtype], K, B, N, U, L, columns, *[ctypes.byref(o) for o in out]
+        )
+    if err != 0:
+        raise ValueError(f"edge_tangent: {columns} columns per block do not launch (cudaError {err})")
+    keys = ("smem_bytes", "blocks_per_sm", "row_tiles", "staged")
+    return dict(zip(keys, (o.value for o in out)))
 
 
 def _pointers(xs: Sequence[Tensor]):
@@ -98,6 +133,7 @@ def edge_tangent(
     d_e: Sequence[Tensor], d_x: Sequence[Tensor], m: Tensor, g: Tensor,
     gd: Tensor, e_l: Tensor, e_tail: Sequence[Tensor],
     x_tail: Sequence[Tensor], x_out: Tensor, g_out: Tensor,
+    columns_per_block: Optional[int] = None,
 ) -> Tuple[Tensor, Tensor]:
     """Edge tangent chain (see `edge_tangent_reference` for the contract).
 
@@ -105,7 +141,13 @@ def edge_tangent(
     the current stream, without synchronising; the arguments must match
     the documented shapes exactly, be contiguous and share one dtype
     (float32 or bfloat16; ``l2_t`` is always float32).
+    ``columns_per_block`` overrides the kernel's choice of tangent columns
+    per thread block; it must be at least 1, and a value that does not
+    launch raises.  The outputs do not depend on it beyond the order of
+    f32 sums inside the tensor-core products.
     """
+    if columns_per_block is not None and columns_per_block < 1:
+        raise ValueError(f"edge_tangent: columns_per_block must be >= 1, got {columns_per_block}")
     args = (a_t, b_t, l2_t, d_e, d_x, m, g, gd, e_l, e_tail, x_tail, x_out, g_out)
     if a_t.device.type == "cpu":
         return edge_tangent_reference(*args)
@@ -137,11 +179,11 @@ def edge_tangent(
 
     phi_t = torch.empty((K, B, N, N), dtype=torch.float32, device=dev)
     mi_t = torch.empty((K, B, N, U), dtype=torch.float32, device=dev)
-    fn = _kernel()
+    cols = columns_per_block or default_columns(dev.index or 0, cd, K, B, N, U, L)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            _DTYPE_CODES[cd], K, B, N, U, L,
+        err = _library().ecnf_edge_tangent(
+            _DTYPE_CODES[cd], K, B, N, U, L, cols,
             a_t.data_ptr(), b_t.data_ptr(), l2_t.data_ptr(),
             _pointers(d_e), _pointers(d_x),
             m.data_ptr(), g.data_ptr(), gd.data_ptr(), e_l.data_ptr(),
@@ -150,7 +192,10 @@ def edge_tangent(
             phi_t.data_ptr(), mi_t.data_ptr(), stream,
         )
     if err != 0:
-        raise RuntimeError(f"edge_tangent: kernel launch failed, cudaError {err}")
+        raise RuntimeError(
+            f"edge_tangent: kernel launch failed (cudaError {err}) for K={K} B={B} N={N} "
+            f"U={U} L={L} {cd} columns={cols}"
+        )
     edge_tangent.launch_count += 1
     return phi_t, mi_t
 

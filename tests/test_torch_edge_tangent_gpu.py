@@ -6,7 +6,10 @@ tests/test_torch_edge_tangent_gpu.py`` (the suite's conftest imports JAX).
 Limits: the kernel's outputs, max |kernel - plain| / max |plain| 1e-4 in
 float32 and 1e-2 in bfloat16; the whole trace at LJ13 widths, ``div -
 offset`` rtol 1e-4 / atol 1e-5 in float32 and 3e-2 of its largest
-magnitude in bfloat16.
+magnitude in bfloat16.  A thread block takes C tangent columns of one
+(receiver, sample) as C * N rows in 16-row tensor-core tiles: the chunking
+cases put ragged row counts (C * N % 16 != 0), a K that C does not divide,
+and C = 1, the default and the largest C that launches through it.
 """
 import pytest
 import torch
@@ -25,8 +28,28 @@ def cuda():
     return torch.device("cuda")
 
 
+LIMITS = [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)]
+
+
+def _check(out, ref, limit):
+    for o, r in zip(out, ref):
+        assert torch.isfinite(o).all()
+        assert ((o - r).abs().max() / r.abs().max()).item() <= limit
+
+
+def _largest_columns(dtype, K, B, N, U, L):
+    cols = 0
+    for c in range(1, K + 1):
+        try:
+            et.launch_plan(0, dtype, K, B, N, U, L, c)
+        except ValueError:
+            break
+        cols = c
+    return cols
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,limit", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("dtype,limit", LIMITS)
 @pytest.mark.parametrize("K,B,N,U,L", [(3, 4, 5, 32, 2), (36, 8, 13, 128, 3), (4, 4, 19, 256, 4)])
 def test_kernel_matches_plain_on_cuda(cuda, K, B, N, U, L, dtype, limit):
     args = torch_args(edge_inputs(K, B, N, U, L, seed=1), dtype, cuda)
@@ -34,10 +57,68 @@ def test_kernel_matches_plain_on_cuda(cuda, K, B, N, U, L, dtype, limit):
     out = et.edge_tangent(**args)
     torch.cuda.synchronize()
     assert et.edge_tangent.launch_count == before + 1
+    _check(out, et.edge_tangent_reference(**args), limit)
+
+
+# (K, B, N, U, L, C): C * N % 16 != 0 at N = 5, 13 and 19, and a K that C
+# does not divide.
+RAGGED = [(7, 3, 5, 32, 2, 3), (7, 2, 13, 128, 3, 2), (5, 2, 19, 256, 4, 2), (7, 2, 13, 64, 1, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,limit", LIMITS)
+@pytest.mark.parametrize("K,B,N,U,L,C", RAGGED)
+def test_ragged_rows_and_columns_match_plain(cuda, K, B, N, U, L, C, dtype, limit):
+    assert (C * N) % 16 != 0 and K % C != 0
+    args = torch_args(edge_inputs(K, B, N, U, L, seed=4), dtype, cuda)
+    out = et.edge_tangent(**args, columns_per_block=C)
+    _check(out, et.edge_tangent_reference(**args), limit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,limit", LIMITS)
+@pytest.mark.parametrize("K,B,N,U,L", [(36, 3, 13, 128, 3), (54, 2, 19, 256, 4)])
+def test_chunkings_agree(cuda, K, B, N, U, L, dtype, limit):
+    # C = 1, the default and the largest C that launches: each within the
+    # limit of the plain version and of the default chunking.
+    args = torch_args(edge_inputs(K, B, N, U, L, seed=5), dtype, cuda)
     ref = et.edge_tangent_reference(**args)
-    for o, r in zip(out, ref):
-        assert torch.isfinite(o).all()
-        assert ((o - r).abs().max() / r.abs().max()).item() <= limit
+    default = et.default_columns(0, dtype, K, B, N, U, L)
+    largest = _largest_columns(dtype, K, B, N, U, L)
+    assert 1 <= default <= largest
+    base = et.edge_tangent(**args, columns_per_block=default)
+    _check(base, ref, limit)
+    for cols in sorted({1, largest}):
+        out = et.edge_tangent(**args, columns_per_block=cols)
+        _check(out, ref, limit)
+        _check(out, base, limit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_repeat_runs_agree_bit_for_bit(cuda, dtype):
+    args = torch_args(edge_inputs(36, 4, 13, 128, 3, seed=6), dtype, cuda)
+    first = et.edge_tangent(**args)
+    for _ in range(2):
+        again = et.edge_tangent(**args)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_columns_per_block_rejected_outside_range(cuda, dtype):
+    K, B, N, U, L = 36, 2, 13, 128, 3
+    args = torch_args(edge_inputs(K, B, N, U, L, seed=7), dtype, cuda)
+    before = et.edge_tangent.launch_count
+    for cols in (0, -2):
+        with pytest.raises(ValueError, match="columns_per_block"):
+            et.edge_tangent(**args, columns_per_block=cols)
+    largest = _largest_columns(dtype, K, B, N, U, L)
+    for cols in (largest + 1, K + 1):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            et.edge_tangent(**args, columns_per_block=cols)
+    assert et.edge_tangent.launch_count == before
 
 
 @pytest.mark.gpu

@@ -39,7 +39,16 @@ Phases, one or more lines each:
    twice; median): the structured path's kernel against its plain
    version (bf16), and the fused path's kernel against its plain version,
    with the edge kernel's share of the structured solve and the fused
-   kernel's share of the fused solve.
+   kernel's share of the fused solve;
+10. train step (`ecnf_tpu_torch.training`, the plain torch EGNN under
+   autograd, as in JAX; no custom kernel runs, and the counts must stay
+   0): (a) f32 parity of the card against the CPU on the same weights,
+   data, x0 and t, three updates at microbatch 1 and 4 with EMA; (b) the
+   QM9 flagship step of the JAX `bench.py` (B=256, bf16, EMA, Adam 1e-4) at
+   microbatch 4 and 1: first step apart, then ms per step by CUDA events,
+   steps/s, peak device memory, TFLOP/s against the dense bf16 peak, and
+   the device's busy share in a `torch.profiler` trace of a few steps; (c)
+   the loss falls on a fixed LJ13 batch through `epoch`.
 
 Bounds: the larger of the bytes a kernel must move (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
@@ -64,6 +73,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -94,6 +104,30 @@ EGCL_SHAPES = (
     ("qm9", 19, (256,) * 4, 32, 5, 64),
 )
 KERNELS = ("edge_tangent", "egcl", "fused_trace")
+# Train phase.  (a) the sizes of `tests/test_torch_train.py`; (b) the QM9
+# flagship step of the JAX `bench.py:363-373,412-437`; (c) LJ13 width
+# (`bench.py:352-360`).
+TRAIN_SMALL = dict(n=5, blocks=2, units=(32, 32), hidden=16, batch=8)
+QM9_TRAIN = dict(n=19, blocks=5, units=(256,) * 4, hidden=32, batch=256)
+LJ13_TRAIN = dict(n=13, blocks=3, units=(128,) * 3, hidden=64, batch=48)
+TRAIN_STEPS = 30  # timed steps per microbatch setting, after the first
+PROFILE_STEPS = 3
+# (a) bands: loss, grad_norm, update_norm rtol, params and EMA absolute, as
+# in the CPU tests (Adam's g / (|g| + 1e-8) amplifies gradient differences
+# of components with |g| near 1e-8, up to 2 lr).  Gradient leaves within
+# GRAD_RTOL of the leaf's largest |g|: the CPU tests hold 1e-5 against JAX,
+# but cuBLAS sums in another order than the CPU, and the first block's gate
+# weight, whose gradient is a cancelling sum over the B N^2 edge rows,
+# lands at 1.5e-5 of its own largest entry (every other leaf at <= 3.8e-6);
+# the CUDA embedding backward also sums with atomics.
+TRAIN_RTOL = 1e-5
+GRAD_RTOL = 1e-4
+PARAM_ATOL = 5e-6
+EMA_ATOL = 1e-6
+# (c) the loss must fall: mean of the last 5 below this share of the first 5
+# (0.81-0.84 over five seeds on the CPU, `tests/test_torch_train.py`).
+LOSS_FALL = 0.9
+LJ13_UPDATES = 50
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 and TF32 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -144,6 +178,36 @@ def bound(flop: float, nbytes: float, flops_per_s: float, products: int = 1) -> 
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 flop=flop)
+
+
+def train_step_flops(batch: int, n: int, dim: int, hidden: int, temb: int, units, blocks: int) -> dict:
+    """Matmul FLOP of one flow-matching train step of the EGNN field, as
+    `ecnf_tpu/ops/flops.py: count_fn_flops` counts the JAX update: each
+    forward product, then in the backward one product for the weight and
+    one more for any input that depends on the parameters.  The positions
+    of the first block depend on none; the last block's gate and phi_h feed
+    nothing, so they have no backward.  ``f32`` is the geometry's share
+    (the Gram matrix and the aggregation), the rest runs in the compute
+    dtype.  Microbatching leaves the count unchanged."""
+    P, Q = batch * n * n, batch * n  # edge rows, node rows
+    U = list(units)
+    pairs = list(zip(U[:-1], U[1:]))
+    total = f32 = 0.0
+    for i in range(blocks):
+        first, last = i == 0, i == blocks - 1
+        geo = 2 * P * dim * ((1 if first else 3) + (2 if first else 3))  # gram, w @ x
+        f = 2 * Q * hidden * hidden * 3 + 2 * batch * temb * hidden * 2  # time Dense
+        f += 2 * Q * hidden * U[0] * 3 * 2 + 2 * P * U[0] * (2 if first else 3)  # phi_e first
+        f += sum(2 * P * a * b * 3 for a, b in pairs)  # phi_e tail
+        f += (2 * P * U[-1] * U[0] + sum(2 * P * a * b for a, b in pairs)) * 3  # phi_x
+        f += 2 * P * U[-1] * 3  # phi_x_out
+        gate = 2 * P * U[-1]
+        phi_h = (2 * Q * (U[-1] + hidden) * U[0] + sum(2 * Q * a * b for a, b in pairs)
+                 + 2 * Q * U[-1] * hidden)
+        f += (gate + phi_h) * (1 if last else 3)
+        total += f + geo
+        f32 += geo
+    return dict(total=total, f32=f32)
 
 
 def rate_line(b: dict, ms: float) -> str:
@@ -568,6 +632,233 @@ def phase_timing(sample, sampling, fused_trace, card: str, edge_ms: float,
     return medians
 
 
+def _train_cnf(q: dict, device, cdt=None, seed=0, n_features=1, sigma_min=0.01, base_scale=1.0):
+    from ecnf_tpu_torch.cnf.build import build_cnf
+
+    return build_cnf(
+        n_frames=q["n"], dim=3, sigma_min=sigma_min, base_scale=base_scale,
+        n_blocks_egnn=q["blocks"], mlp_units=q["units"], n_invariant_feat_hidden=q["hidden"],
+        time_embedding_dim=8, n_features=n_features, compute_dtype=cdt, device=device,
+        generator=torch.Generator().manual_seed(seed),
+    )
+
+
+def _train_parity(training) -> None:
+    """(a) three f32 updates on the card against the same on the CPU."""
+    import numpy as np
+
+    optim, state_mod = training
+    q = TRAIN_SMALL
+    B, D = q["batch"], q["n"] * 3
+    cpu = _train_cnf(q, "cpu", n_features=2, seed=11)
+    # Dense kernels at N(0, 1/fan_in), biases at N(0, 0.1^2), from numpy.
+    rng = np.random.default_rng(12)
+    with torch.no_grad():
+        for name, p in cpu.field.named_parameters():
+            if name.endswith("weight") and not name.startswith("embed"):
+                p.copy_(torch.from_numpy(rng.normal(0, p.shape[1] ** -0.5, p.shape).astype(np.float32)))
+            elif name.endswith("bias"):
+                p.copy_(torch.from_numpy(rng.normal(0, 0.1, p.shape).astype(np.float32)))
+    card = _train_cnf(q, "cuda", n_features=2, seed=11)
+    card.field.load_state_dict(cpu.field.state_dict())
+    steps = [
+        dict(x=rng.normal(size=(B, D)), noise=rng.normal(size=(B, D)), t=rng.uniform(size=(B,)))
+        for _ in range(3)
+    ]
+    feats = np.tile(np.arange(q["n"]) % 2, (B, 1))
+    for microbatch in (1, 4):
+        opt = optim.build_optimizer(1e-3)
+        runs = {}
+        for device, cnf in (("cpu", cpu), ("cuda", card)):
+            gen = torch.Generator(device=device).manual_seed(0)
+            runs[device] = [cnf, state_mod.init_training_state(cnf, opt, gen, use_ema=True),
+                            state_mod.make_update_fn(cnf, opt, use_ema=True, microbatch=microbatch)]
+        worst = dict(info=0.0, grad=0.0, grad_global=0.0, param=0.0, ema=0.0)
+        failures = []
+        leaf_errs = []
+        for i, step in enumerate(steps):
+            out = {}
+            for device, (cnf, st, update) in runs.items():
+                as_t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to(device, dt)
+                x0 = cnf.sample_base((B,), noise=as_t(step["noise"]))
+                args = (as_t(step["x"]), as_t(feats, torch.int64))
+                grads, _ = state_mod.loss_and_grads(cnf, st.params, *args, microbatch, x0=x0,
+                                                    t=as_t(step["t"]))
+                st, info = update(st, *args, x0=x0, t=as_t(step["t"]))
+                runs[device][1] = st
+                out[device] = (grads, info, st)
+            (g_c, i_c, s_c), (g_g, i_g, s_g) = out["cpu"], out["cuda"]
+            where = f"train parity mb{microbatch} step {i}"
+            for name in i_c:
+                rel = abs(i_g[name].item() - i_c[name].item()) / abs(i_c[name].item())
+                worst["info"] = max(worst["info"], rel)
+                if rel > TRAIN_RTOL:
+                    failures.append(f"{where}: {name} rel {rel:.3e}")
+            global_scale = max(b.abs().max().item() for b in g_c)
+            for name, a, b in zip(s_c.params, g_g, g_c):
+                scale = b.abs().max().item()
+                err = (a.cpu() - b).abs().max().item()
+                leaf_errs.append((err / scale if scale else err, err, scale, f"step {i} {name}"))
+                worst["grad"] = max(worst["grad"], err / scale if scale else err)
+                worst["grad_global"] = max(worst["grad_global"], err / global_scale)
+                if err > GRAD_RTOL * scale:
+                    failures.append(f"{where}: grad {name} err {err:.3e} of scale {scale:.3e}")
+            for key, tree_c, tree_g, atol in (("param", s_c.params, s_g.params, PARAM_ATOL),
+                                               ("ema", s_c.ema_params, s_g.ema_params, EMA_ATOL)):
+                err = max((tree_g[n].cpu() - tree_c[n]).abs().max().item() for n in tree_c)
+                worst[key] = max(worst[key], err)
+                if err > atol:
+                    failures.append(f"{where}: {key} max abs {err:.3e}")
+        leaf_errs.sort(reverse=True)
+        print(f"[train] (a) microbatch {microbatch}: largest gradient-leaf errors (of the leaf's "
+              f"own largest |g|): " + "; ".join(f"{r:.2e} ({e:.2e} of {sc:.2e}) {n}"
+                                                 for r, e, sc, n in leaf_errs[:4]), flush=True)
+        print(
+            f"[train] (a) f32 card vs CPU, 3 updates, microbatch {microbatch}, EMA, Adam 1e-3: "
+            f"loss/grad_norm/update_norm rel {worst['info']:.3e} (limit {TRAIN_RTOL:.0e}), "
+            f"gradient leaves {worst['grad']:.3e} of the leaf's scale (limit {GRAD_RTOL:.0e}), "
+            f"{worst['grad_global']:.3e} of the gradient's, "
+            f"params {worst['param']:.3e} (limit {PARAM_ATOL:.0e}), EMA {worst['ema']:.3e} "
+            f"(limit {EMA_ATOL:.0e})",
+            flush=True,
+        )
+        check(not failures, "; ".join(failures[:6]))
+
+
+def _profile_step(step) -> tuple:
+    """Device kernel ms and kernels per step of ``step``, from a
+    `torch.profiler` trace of PROFILE_STEPS runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return kernel_ms / PROFILE_STEPS, len(kernels) / PROFILE_STEPS
+
+
+def _train_flagship(training, card: str) -> dict:
+    """(b) the QM9 flagship step at microbatch 4, then 1."""
+    import numpy as np
+
+    optim, state_mod = training
+    q = QM9_TRAIN
+    B, D = q["batch"], q["n"] * 3
+    cnf = _train_cnf(q, "cuda", cdt="bfloat16", sigma_min=1e-6, base_scale=2.0)
+    data = torch.from_numpy(
+        np.random.default_rng(0).normal(size=(TRAIN_STEPS + 1, B, D)).astype(np.float32)
+    ).cuda()
+    feats = torch.zeros((B, q["n"]), dtype=torch.int64, device="cuda")
+    flops = train_step_flops(B, q["n"], 3, q["hidden"], 8, q["units"], q["blocks"])
+    opt = optim.build_optimizer(1e-4)
+    results = {}
+    for microbatch in (4, 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st = state_mod.init_training_state(cnf, opt, torch.Generator(device="cuda").manual_seed(0),
+                                           use_ema=True)
+        update = state_mod.make_update_fn(cnf, opt, use_ema=True, microbatch=microbatch)
+        start = time.perf_counter()
+        st, info = update(st, data[0], feats)
+        first_loss = info["loss"].item()
+        first_s = time.perf_counter() - start
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(TRAIN_STEPS)]
+        losses = []
+        for i, (ev_start, ev_end) in enumerate(events):
+            ev_start.record()
+            st, info = update(st, data[i + 1], feats)
+            ev_end.record()
+            losses.append(info["loss"])
+        torch.cuda.synchronize()
+        ms = sorted(a.elapsed_time(b) for a, b in events)
+        losses = torch.stack(losses).cpu()
+        check(math.isfinite(first_loss) and bool(torch.isfinite(losses).all()),
+              f"QM9 train microbatch {microbatch}: non-finite loss")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        med = statistics.median(ms)
+        box = {"st": st}
+
+        def one_step():
+            box["st"], _ = update(box["st"], data[0], feats)
+
+        kernel_ms, n_kernels = _profile_step(one_step)
+        tflops = flops["total"] / med / 1e9
+        results[microbatch] = dict(ms=med, first_s=first_s, peak_gb=peak_gb, tflops=tflops,
+                                   busy=kernel_ms / med)
+        print(
+            f"[train] (b) QM9 flagship step (B={B}, N={q['n']}, {q['blocks']} blocks of "
+            f"{list(q['units'])}, hidden {q['hidden']}, bf16, EMA, Adam 1e-4), microbatch "
+            f"{microbatch}: first step {first_s:.3f} s (loss {first_loss:.4f}); {TRAIN_STEPS} steps "
+            f"by CUDA events: median {med:.3f} ms/step, min {ms[0]:.3f}, max {ms[-1]:.3f}, "
+            f"p10-p90 {ms[len(ms) // 10]:.3f}-{ms[(9 * len(ms)) // 10]:.3f}; "
+            f"{1e3 / med:.2f} steps/s; peak device memory {peak_gb:.2f} GB; "
+            f"{flops['total'] / 1e12:.4f} TFLOP a step ({flops['f32'] / 1e9:.3f} GFLOP of it f32) "
+            f"-> {tflops:.1f} TFLOP/s, {tflops / (BF16_FLOPS / 1e12):.4f} of the dense bf16 peak "
+            f"(989); profiler over {PROFILE_STEPS} steps: {n_kernels:.0f} device kernels and "
+            f"{kernel_ms:.3f} ms of device kernel time a step, busy share {kernel_ms / med:.3f} "
+            f"of the median step; last loss {losses[-1].item():.4f}; on {card}",
+            flush=True,
+        )
+        del st, box
+        torch.cuda.empty_cache()
+    return results
+
+
+def _train_progress(training, setup) -> None:
+    """(c) the loss falls on one fixed LJ13 batch, through `epoch`."""
+    import numpy as np
+
+    optim, state_mod = training
+    q = LJ13_TRAIN
+    cnf = _train_cnf(q, "cuda", cdt="bfloat16")
+    x = torch.from_numpy(
+        np.random.default_rng(0).normal(size=(q["batch"], q["n"] * 3)).astype(np.float32)
+    ).cuda()
+    feats = torch.zeros((q["batch"], q["n"]), dtype=torch.int64, device="cuda")
+    opt = optim.build_optimizer(1e-3)
+    st = state_mod.init_training_state(cnf, opt, torch.Generator(device="cuda").manual_seed(0))
+    update = state_mod.make_update_fn(cnf, opt, microbatch=2)
+    losses = []
+    for _ in range(LJ13_UPDATES):
+        st, infos = setup.epoch(st, update, x, feats, q["batch"])
+        losses.append(infos["loss"])
+    losses = torch.cat(losses).cpu()
+    first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+    print(
+        f"[train] (c) LJ13 width (3 blocks of [128]*3, hidden 64, bf16, B={q['batch']}), one fixed "
+        f"batch, {LJ13_UPDATES} updates through epoch, Adam 1e-3, microbatch 2: mean loss of the "
+        f"first 5 {first:.4f}, of the last 5 {last:.4f}, ratio {last / first:.3f} (limit "
+        f"{LOSS_FALL})",
+        flush=True,
+    )
+    check(bool(torch.isfinite(losses).all()), "LJ13 train: non-finite loss")
+    check(last < LOSS_FALL * first, f"LJ13 train: loss ratio {last / first:.3f} >= {LOSS_FALL}")
+
+
+def phase_train(card: str) -> dict:
+    """The train step: (a) parity, (b) the QM9 flagship step, (c) progress.
+    The path runs no custom kernel, as in JAX: every count stays 0."""
+    from ecnf_tpu_torch.training import optim, setup
+    from ecnf_tpu_torch.training import state as state_mod
+
+    training = (optim, state_mod)
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    check(not torch.backends.cuda.matmul.allow_tf32, "train parity needs allow_tf32 False")
+    zero_counts()
+    _train_parity(training)
+    torch.set_float32_matmul_precision(precision)
+    results = _train_flagship(training, card)
+    _train_progress(training, setup)
+    launched = counts()
+    check(not any(launched.values()), f"the train path launched custom kernels: {launched}")
+    return results
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
@@ -601,6 +892,7 @@ def main() -> None:
     fused_launches = phase_fused_serving(sample, sampling, f32)
     phase_timing(sample, sampling, fused_trace, card, edge[("lj13", "bfloat16")]["ms"],
                  fused["lj13"]["ms"])
+    phase_train(card)
 
     # Per kernel, its main-path shapes: the LJ13 structured solve's bf16
     # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches)

@@ -89,10 +89,14 @@ def build_cnf(
     """Build the molecular-coordinate CNF with a freshly initialised field.
 
     The field's parameters are drawn on the CPU from ``generator`` (flax's
-    initial distributions) and then moved to ``device``.
-    ``compute_dtype="bfloat16"`` runs the EGNN's MLPs in bf16; parameters
-    and geometry stay f32.
+    initial distributions) and then moved to ``device``: the CUDA card
+    unless the caller names another (``device="cpu"``); without a card that
+    default raises.  ``compute_dtype="bfloat16"`` runs the EGNN's MLPs in
+    bf16; parameters and geometry stay f32.
     """
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_cnf: no CUDA device; pass device='cpu' to build on the CPU")
     base = ZeroCoMGaussian(n_nodes=n_frames, dim=dim, scale=base_scale)
     net = FlatEGNNField(
         n_nodes=n_frames,

@@ -8,7 +8,7 @@ into a ``state_dict`` of `ecnf_tpu_torch.cnf.build.FlatEGNNField`;
 flax Dense kernels are ``[in, out]``, torch weights ``[out, in]``.
 """
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -85,10 +85,13 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
-def to_flax(field: nn.Module) -> Dict[str, dict]:
-    """The port's field -> ``{"params": nested dict of numpy arrays}``."""
+def to_flax(field: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Dict[str, dict]:
+    """The port's field, or a ``state_dict`` of it (such as a training
+    state's ``params`` or ``ema_params``) -> ``{"params": nested dict of
+    numpy arrays}``."""
     tree: dict = {}
-    for name, value in field.state_dict().items():
+    state = field.state_dict() if isinstance(field, nn.Module) else field
+    for name, value in state.items():
         path = _flax_path(name)
         array = value.detach().cpu().float().numpy()
         if path.endswith("/kernel"):

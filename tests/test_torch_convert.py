@@ -24,7 +24,7 @@ def _flat(tree, prefix=""):
 
 def test_roundtrip_is_identity_on_flax_init():
     tree = tp._flax_tree(3, (32, 32), tp.N, tp.DIM)
-    cnf = build_torch_cnf(**tp.cnf_kwargs(3, (32, 32)))
+    cnf = build_torch_cnf(**tp.cnf_kwargs(3, (32, 32)), device="cpu")
     cnf.field.load_state_dict(from_flax(tree))
     back = _flat(to_flax(cnf.field))
     ref = _flat(tree)
@@ -80,7 +80,7 @@ def test_seeded_init_matches_flax_std_at_lj13_width():
     x = jnp.zeros((2, 39))
     params = jax.jit(jcnf.init)(jax.random.PRNGKey(0), x, jnp.zeros(2), jnp.zeros((2, 13), jnp.int32))
     ref = _flat(jax.device_get(params))
-    port = _flat(to_flax(build_torch_cnf(**kw, generator=torch.Generator().manual_seed(0)).field))
+    port = _flat(to_flax(build_torch_cnf(**kw, device="cpu", generator=torch.Generator().manual_seed(0)).field))
     checked = 0
     for path, value in ref.items():
         assert port[path].shape == value.shape, path

@@ -4,9 +4,11 @@ Marked ``gpu``; skipped without a CUDA device.  Imports no JAX, so it runs
 on a machine without it: ``python -m pytest --noconftest
 tests/test_torch_edge_tangent_gpu.py`` (the suite's conftest imports JAX).
 Limits: the kernel's outputs, max |kernel - plain| / max |plain| 1e-4 in
-float32 and 1e-2 in bfloat16; the whole trace at LJ13 widths, ``div -
-offset`` rtol 1e-4 / atol 1e-5 in float32 and 3e-2 of its largest
-magnitude in bfloat16.  A thread block takes C tangent columns of one
+float32 and 1e-2 in bfloat16; the whole trace at LJ13 widths and at the
+shipped DW4 (N=4, D=2) and ALDP (N=22, U=64, H=32, per-atom features)
+shapes, ``div - offset`` rtol 1e-4 / atol 1e-5 in float32 and 3e-2 of its
+largest magnitude in bfloat16, and so the Hutchinson route's per-sample
+probes (4 per sample) at QM9 width.  A thread block takes C tangent columns of one
 (receiver, sample) as C * N rows in 16-row tensor-core tiles: the chunking
 cases put ragged row counts (C * N % 16 != 0), a K that C does not divide,
 and C = 1, the default and the largest C that launches through it.
@@ -151,6 +153,95 @@ def test_trace_through_kernel_matches_plain_on_cuda(cuda, cdt):
         torch.testing.assert_close(d_k, d_p, rtol=1e-4, atol=1e-5)
     else:
         assert (d_k - d_p).abs().max() <= 3e-2 * d_p.abs().max()
+
+
+# Shipped configurations (`examples/configs/`): (name, n_nodes, dim,
+# n_blocks, mlp_units, hidden, features "zeros" or "arange").
+SHIPPED = [
+    ("dw4", 4, 2, 3, (128, 128, 128), 64, "zeros"),
+    ("aldp", 22, 3, 3, (64, 64), 32, "arange"),
+]
+
+
+def _shipped_cnf(n, dim, blocks, units, hidden, features, cdt, device, batch, seed=0):
+    """A CNF of a shipped configuration with its Dense kernels redrawn at
+    N(0, 1/fan_in), and inputs ``x``, ``t``, ``f`` of ``batch`` samples."""
+    cnf = build_cnf(
+        n_frames=n, dim=dim, sigma_min=0.01, base_scale=1.0, n_blocks_egnn=blocks,
+        mlp_units=units, n_invariant_feat_hidden=hidden, time_embedding_dim=8,
+        n_features=n if features == "arange" else 1, compute_dtype=cdt, device=device,
+        generator=torch.Generator().manual_seed(seed),
+    )
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in cnf.field.named_parameters():
+            if name.endswith("weight") and not name.startswith("embed"):
+                p.copy_(torch.randn(p.shape, generator=gen) / p.shape[1] ** 0.5)
+    x = torch.randn((batch, n * dim), generator=gen).to(device)
+    t = torch.linspace(0.1, 0.9, batch, device=device)
+    row = torch.arange(n) if features == "arange" else torch.zeros(n, dtype=torch.int64)
+    return cnf, x, t, row.repeat(batch, 1).to(device)
+
+
+def _trace_band(d_k, d_p, cdt):
+    if cdt is None:
+        torch.testing.assert_close(d_k, d_p, rtol=1e-4, atol=1e-5)
+    else:
+        assert (d_k - d_p).abs().max() <= 3e-2 * d_p.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cdt", [None, "bfloat16"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name,n,dim,blocks,units,hidden,features", SHIPPED,
+                         ids=[s[0] for s in SHIPPED])
+def test_trace_through_kernel_at_shipped_shapes(cuda, name, n, dim, blocks, units, hidden,
+                                                features, cdt):
+    cnf, x, t, f = _shipped_cnf(n, dim, blocks, units, hidden, features, cdt, cuda, batch=6)
+    basis, offset = cnf.exact_trace_plan()
+    assert basis.shape == ((n - 1) * dim, n * dim)
+    before = et.edge_tangent.launch_count
+    v_k, d_k = cnf.tangent_value_and_div(x, t, f, basis, trace_offset=offset)
+    assert et.edge_tangent.launch_count == before + blocks
+    v_p, d_p = cnf.tangent_value_and_div(x, t, f, basis, trace_offset=offset, use_kernel=False)
+    d_k, d_p = d_k - offset, d_p - offset
+    # DW4's network trace runs over only 6 columns and stays ~0.03.
+    assert torch.isfinite(d_k).all() and d_p.abs().max() > 0.01
+    torch.testing.assert_close(v_k, v_p, rtol=0, atol=0)
+    _trace_band(d_k, d_p, cdt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cdt", [None, "bfloat16"], ids=["f32", "bf16"])
+def test_hutchinson_probes_through_kernel(cuda, cdt):
+    # The QM9 Hutchinson route (approx=True, 4 probes per sample): per-sample
+    # [K, B, D] directions through the edge kernel, at QM9 width.
+    cnf, x, t, f = _shipped_cnf(19, 3, 5, (256,) * 4, 32, "zeros", cdt, cuda, batch=4, seed=3)
+    probes = torch.randn((4, 4, 57), generator=torch.Generator().manual_seed(4)).to(cuda)
+    before = et.edge_tangent.launch_count
+    v_k, d_k = cnf.tangent_value_and_div(x, t, f, probes)
+    assert et.edge_tangent.launch_count == before + 5
+    v_p, d_p = cnf.tangent_value_and_div(x, t, f, probes, use_kernel=False)
+    assert torch.isfinite(d_k).all()
+    torch.testing.assert_close(v_k, v_p, rtol=0, atol=0)
+    _trace_band(d_k, d_p, cdt)
+
+
+@pytest.mark.gpu
+def test_hutchinson_solve_launches_the_kernel(cuda):
+    from ecnf_tpu_torch.cnf.sampling import SolveConfig, sample_and_log_prob_cnf
+
+    cnf, _, _, f = _shipped_cnf(5, 3, 2, (32, 32), 16, "zeros", "bfloat16", cuda, batch=6)
+    cfg = SolveConfig(use_fixed_step_size=True, step_size=0.25, method="rk4", hutchinson_probes=4)
+    x0 = cnf.sample_base((6,), generator=torch.Generator().manual_seed(5))
+    eps = torch.randn((4, 6, 15), generator=torch.Generator().manual_seed(6)).to(cuda)
+    before = et.edge_tangent.launch_count
+    x1, log_q = sample_and_log_prob_cnf(cnf, 6, f, approx=True, cfg=cfg, x0=x0, eps=eps)
+    assert et.edge_tangent.launch_count == before + 4 * 4 * 2  # steps x stages x blocks
+    plain_cfg = SolveConfig(use_fixed_step_size=True, step_size=0.25, method="rk4",
+                            hutchinson_probes=4, structured_tangent_kernel=False)
+    x1_p, log_q_p = sample_and_log_prob_cnf(cnf, 6, f, approx=True, cfg=plain_cfg, x0=x0, eps=eps)
+    torch.testing.assert_close(x1, x1_p, rtol=0, atol=0)
+    assert (log_q - log_q_p).abs().max() <= 3e-2 * log_q_p.abs().max()
 
 
 @pytest.mark.gpu

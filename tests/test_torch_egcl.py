@@ -30,7 +30,7 @@ CASES = [(5, 2, (32, 32)), (13, 3, (32, 32)), (13, 2, (32, 32, 32))]
 @pytest.mark.parametrize("n,blocks,units", CASES)
 def test_weight_layout_matches_jax_flatten(n, blocks, units):
     tree = tp.redraw(tp._flax_tree(blocks, units, n, tp.DIM), seed=n)
-    cnf = build_torch_cnf(**tp.cnf_kwargs(blocks, units, n=n))
+    cnf = build_torch_cnf(**tp.cnf_kwargs(blocks, units, n=n), device="cpu")
     cnf.field.load_state_dict(from_flax(tree))
     egnn_tree = tree["params"]["EGNN_0"]
     packed = egcl.egnn_weights(cnf.field.egnn)
@@ -98,7 +98,7 @@ def test_sample_only_solve_through_fused_forward():
 
 
 def test_non_constant_units_are_refused():
-    cnf = build_torch_cnf(**tp.cnf_kwargs(2, (32, 16)))
+    cnf = build_torch_cnf(**tp.cnf_kwargs(2, (32, 16)), device="cpu")
     with pytest.raises(ValueError, match="constant-width"):
         egcl.egnn_weights(cnf.field.egnn)
     assert cnf.fused_value_and_div is None and cnf.fused_weights is None

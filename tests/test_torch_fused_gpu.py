@@ -9,7 +9,9 @@ Limits, all f32: the EGCL forward, max |kernel - plain| / max |plain|
 trace, ``div + dim * final_scaling``, rel 1e-4 of its largest magnitude.
 Both kernels take their dense products on the tensor cores in 3xTF32, in
 16-row tiles: the ragged cases put S * N rows (S = columns + 1 slots) that
-are not a multiple of 16 through them.
+are not a multiple of 16 through them.  Both kernels also run at the
+shipped DW4 (N=4, D=2) and ALDP (N=22, U=64, H=32, per-atom features)
+shapes.
 """
 import math
 
@@ -171,6 +173,58 @@ def test_fused_serving_solve_launches_the_kernel(cuda):
     assert fused_trace.egnn_value_and_div_fused.launch_count == before + 80  # 20 steps x 4 stages
     assert torch.isfinite(torch.from_numpy(out["log_q"])).all()
     assert torch.isfinite(torch.from_numpy(out["samples"])).all()
+
+
+# Shipped configurations (`examples/configs/`): (name, n_nodes, dim,
+# n_blocks, mlp_units, hidden, features "zeros" or "arange").
+SHIPPED = [
+    ("dw4", 4, 2, 3, (128, 128, 128), 64, "zeros"),
+    ("aldp", 22, 3, 3, (64, 64), 32, "arange"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n,dim,blocks,units,hidden,features", SHIPPED,
+                         ids=[s[0] for s in SHIPPED])
+def test_kernels_at_shipped_shapes(cuda, name, n, dim, blocks, units, hidden, features):
+    cnf = build_cnf(
+        n_frames=n, dim=dim, sigma_min=0.01, base_scale=1.0, n_blocks_egnn=blocks,
+        mlp_units=units, n_invariant_feat_hidden=hidden, time_embedding_dim=8,
+        n_features=n if features == "arange" else 1, device=cuda,
+        generator=torch.Generator().manual_seed(0),
+    )
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for pname, p in cnf.field.named_parameters():
+            if pname.startswith("embed"):
+                continue
+            if pname.endswith("weight"):
+                p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(p.shape[1]))
+            elif pname.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    batch = 5
+    x = torch.randn((batch, n * dim), generator=gen).to(cuda)
+    t = torch.linspace(0.1, 0.9, batch, device=cuda)
+    row = torch.arange(n) if features == "arange" else torch.zeros(n, dtype=torch.int64)
+    f = row.repeat(batch, 1).to(cuda)
+
+    weights = egcl.egnn_weights(cnf.field.egnn)
+    before = egcl.egcl_fused.launch_count
+    out = egcl.flat_egnn_apply_fused(cnf.field, x, t, f, weights)
+    assert egcl.egcl_fused.launch_count == before + blocks
+    plain = egcl.flat_egnn_apply_fused(cnf.field, x, t, f, weights, use_kernel=False)
+    assert torch.isfinite(out).all()
+    assert _rel(out, plain) <= LIMIT
+
+    fused_w = cnf.fused_weights()
+    before = fused_trace.egnn_value_and_div_fused.launch_count
+    v, d = cnf.fused_value_and_div(x, t, f, weights=fused_w)
+    assert fused_trace.egnn_value_and_div_fused.launch_count == before + 1
+    v_p, d_p = fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, fused_w, use_kernel=False)
+    offset = dim * cnf.field.egnn.final_scaling.detach()
+    assert (d_p + offset).abs().max() > 0.1
+    assert _rel(v, v_p) <= LIMIT
+    assert _rel(d + offset, d_p + offset) <= LIMIT
 
 
 @pytest.mark.gpu

@@ -138,7 +138,7 @@ def test_fused_flag_is_ignored_by_hutchinson_and_needs_a_hook():
     for a, b in zip(on, off):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
-    no_hook = build_torch_cnf(**tp.cnf_kwargs(2, (32, 16)))
+    no_hook = build_torch_cnf(**tp.cnf_kwargs(2, (32, 16)), device="cpu")
     with pytest.raises(ValueError, match="no fused kernel"):
         get_log_prob(no_hook, xt, ft, cfg=_cfg())
 

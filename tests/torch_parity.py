@@ -82,7 +82,7 @@ def make_pair(blocks=2, units=(32, 32), cdt=None, seed=0, n=N, dim=DIM):
     tree = redraw(_flax_tree(blocks, tuple(units), n, dim), seed)
     jax_cnf = build_jax_cnf(**cnf_kwargs(blocks, units, cdt, n, dim))
     jax_params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), tree)
-    torch_cnf = build_torch_cnf(**cnf_kwargs(blocks, units, cdt, n, dim))
+    torch_cnf = build_torch_cnf(**cnf_kwargs(blocks, units, cdt, n, dim), device="cpu")
     torch_cnf.field.load_state_dict(from_flax(tree))
     return jax_cnf, jax_params, torch_cnf
 

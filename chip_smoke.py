@@ -48,7 +48,22 @@ Phases, one or more lines each:
    microbatch 4 and 1: first step apart, then ms per step by CUDA events,
    steps/s, peak device memory, TFLOP/s against the dense bf16 peak, and
    the device's busy share in a `torch.profiler` trace of a few steps; (c)
-   the loss falls on a fixed LJ13 batch through `epoch`.
+   the loss falls on a fixed LJ13 batch through `epoch`;
+11. evaluation (adaptive Dopri5 at the `SolveConfig()` defaults, LJ13
+   config width: 3 blocks of [128]*3, hidden 64, batch 64; every solve's
+   steps, attempts, field evaluations, host syncs, CUDA-event ms and
+   non-finite rows recorded, and the edge kernel's launches held to 3 per
+   evaluation): (a) f32 `sample_and_log_prob_cnf` through the edge kernel
+   against the plain version on one x0 (x1, log q, step counts), and the
+   same solve with two rows of x0 set to NaN, whose other rows must come
+   out identical; (b) the `score` entry point on (a)'s samples and
+   weights, whose log p must match (a)'s log q; (c) bf16, the config's
+   dtype: `training.setup.evaluate` with the LJ target on a stand-in test
+   set ((a)'s samples; the LJ13 data are not in the repo), printing
+   test_log_lik, forward_ess, rv_ess (2 batches of 64), eval_ode_steps,
+   attempts, evaluations, launches, syncs, the NaN share, one batch's time,
+   the reverse-ESS rate, the edge kernel's share and peak memory; (d) the
+   f32 solve of (a) with ``fused_trace=True`` against (a).
 
 Bounds: the larger of the bytes a kernel must move (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
@@ -128,6 +143,29 @@ EMA_ATOL = 1e-6
 # (0.81-0.84 over five seeds on the CPU, `tests/test_torch_train.py`).
 LOSS_FALL = 0.9
 LJ13_UPDATES = 50
+# Evaluation phase: the LJ13 config width (`examples/configs/lj13.yaml`: 3
+# blocks of [128]*3, hidden 64, time embedding 8, eval_batch_size 64),
+# adaptive Dopri5 at the SolveConfig defaults.  rv_ess from 2 batches of
+# 64 model samples, not the config's 10,000.
+EVAL_B = 64
+EVAL_RV_SAMPLES = 2 * EVAL_B
+# (a), (d): two adaptive f32 solves from one x0 part by more than their
+# field's rounding: at rtol = 1e-5 the error estimate is partly f32
+# rounding, so last-bit differences move error ratios past the accept
+# threshold, and the step sequences (and the batch's counts, the most of
+# any sample's) part by each solve's own global error.  The solver's own
+# spread is measured in the same run: the plain path against itself from
+# x0 moved one f32 ulp up and one down (the control).  x1 and delta
+# log-lik (log q less log_prob_base(x0), which both sides share) are held
+# within EVAL_CONTROL_TIMES times the larger control gap; step counts and
+# attempts within EVAL_STEP_SHARE of the larger.
+EVAL_CONTROL_TIMES = 3.0
+EVAL_STEP_SHARE = 0.25
+# (b): log p of the scored samples (the reverse solve) against their log q
+# (the forward solve), per sample within the band of the JAX round trip on
+# the CPU (`tests/test_cnf_roundtrip.py:75`, 1e-3 + 1e-3 |log q|), and the
+# largest gap within EVAL_CONTROL_TIMES times the control's delta gap.
+ROUND_TRIP_TOL = 1e-3
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 and TF32 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -859,11 +897,311 @@ def phase_train(card: str) -> dict:
     return results
 
 
+class SolveRecorder:
+    """While active, records every ODE solve that `cnf.sampling` runs: its
+    `ODEStats`, its time by CUDA events and its output, whose non-finite
+    rows are the samples that diverged or ran out of steps."""
+
+    def __init__(self, sampling):
+        self.sampling = sampling
+        self.solves = []
+
+    def __enter__(self):
+        self._solve = solve = self.sampling._solve
+
+        def recorded(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            y, stats = solve(*args, **kwargs)
+            end.record()
+            self.solves.append((stats, start, end, y))
+            return y, stats
+
+        self.sampling._solve = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.sampling._solve = self._solve
+
+    def rows(self) -> list:
+        """Per solve: steps, attempts, field evaluations, host syncs, host
+        seconds waiting in them, device ms, rows that came back non-finite."""
+        torch.cuda.synchronize()
+        return [
+            dict(steps=st.num_steps, attempts=st.num_attempts, evals=2 + 6 * st.num_attempts,
+                 syncs=st.num_syncs, sync_s=st.sync_seconds, ms=a.elapsed_time(b),
+                 nan_rows=int((~torch.isfinite(y).all(dim=-1)).sum()), rows=y.shape[0])
+            for st, a, b, y in self.solves
+        ]
+
+
+def solve_line(r: dict) -> str:
+    return (f"{r['steps']} accepted steps, {r['attempts']} attempts, {r['evals']} field "
+            f"evaluations, {r['syncs']} host syncs ({r['sync_s'] * 1e3:.1f} ms waiting), "
+            f"{r['ms']:.1f} ms, {r['nan_rows']}/{r['rows']} rows non-finite")
+
+
+def solve_gaps(out: dict, ref: dict) -> dict:
+    """Largest |difference| of x1 and of delta log-lik between two solves
+    (``solve``'s dicts in `phase_evaluation`), and both step counts."""
+    return dict(
+        x1=(out["x1"] - ref["x1"]).abs().max().item(),
+        delta=(out["delta"] - ref["delta"]).abs().max().item(),
+        steps=(out["row"]["steps"], ref["row"]["steps"]),
+        attempts=(out["row"]["attempts"], ref["row"]["attempts"]),
+    )
+
+
+def steps_within(g: dict) -> bool:
+    return all(abs(a - b) <= EVAL_STEP_SHARE * max(a, b) for a, b in (g["steps"], g["attempts"]))
+
+
+def gap_line(name: str, g: dict) -> str:
+    return (f"[eval] {name}: x1 max abs {g['x1']:.3e}, delta log-lik max abs {g['delta']:.3e}, "
+            f"steps {g['steps'][0]} vs {g['steps'][1]}, attempts {g['attempts'][0]} vs "
+            f"{g['attempts'][1]} (within {EVAL_STEP_SHARE:.0%} of the larger: {steps_within(g)})")
+
+
+def finite_solve(out: dict) -> bool:
+    return bool(torch.isfinite(out["x1"]).all()) and bool(torch.isfinite(out["delta"]).all())
+
+
+def compare_to_control(name: str, out: dict, ref: dict, control: dict) -> None:
+    """Two solves from one x0, held to the control's gaps (see
+    EVAL_CONTROL_TIMES)."""
+    g = solve_gaps(out, ref)
+    print(f"{gap_line(name, g)}; {g['x1'] / control['x1']:.2f} and "
+          f"{g['delta'] / control['delta']:.2f} of the control's gaps (limit "
+          f"{EVAL_CONTROL_TIMES:g})", flush=True)
+    check(finite_solve(out), f"{name}: non-finite output")
+    check(g["x1"] <= EVAL_CONTROL_TIMES * control["x1"]
+          and g["delta"] <= EVAL_CONTROL_TIMES * control["delta"], f"{name}: beyond the control")
+    check(steps_within(g), f"{name}: step counts beyond the slack")
+
+
+def captured_edge_args(et, cnf, x, t, feats) -> list:
+    """The edge chain's ``(args, kwargs)``, one per block, of one
+    structured exact-trace evaluation of ``cnf`` at ``(x, t [B])``, as the
+    solve makes it (run through the plain version)."""
+    calls, plain = [], et.edge_tangent_reference
+
+    def capture(*args, **kwargs):
+        calls.append((args, kwargs))
+        return plain(*args, **kwargs)
+
+    basis, offset = cnf.exact_trace_plan()
+    et.edge_tangent_reference = capture
+    try:
+        cnf.tangent_value_and_div(x, t, feats, basis, trace_offset=offset, use_kernel=False,
+                                  weights=cnf.trace_weights())
+    finally:
+        et.edge_tangent_reference = plain
+    return calls
+
+
+def eval_kernel_checks(et, fused_trace, cnfs: dict, x, feats) -> dict:
+    """Both kernels of the evaluation at its shapes (B=64) against their
+    plain versions, at phase 3's and phase 7's limits: the edge kernel on
+    random inputs and on the inputs of one structured evaluation (per-sample
+    times, every block), in f32 and bf16; the fused kernel on that
+    evaluation's points.  Returns the bf16 random case's ms and bound."""
+    B, n = x.shape[0], x.shape[1] // 3
+    t = torch.rand((B,), generator=torch.Generator().manual_seed(16)).cuda()
+    timed = {}
+    for dtype, cnf in cnfs.items():
+        name = str(dtype).replace("torch.", "")
+        args = edge_inputs(**dict(LJ13_EDGE, B=B), dtype=dtype, seed=15)
+        cases = [("random inputs", (), args)] + [
+            (f"block {i} of one evaluation at per-sample t", a, k)
+            for i, (a, k) in enumerate(captured_edge_args(et, cnf, x, t, feats))
+        ]
+        for case, a, k in cases:
+            abs_err, rel = edge_errors(et.edge_tangent(*a, **k), et.edge_tangent_reference(*a, **k))
+            print(f"[eval] edge_tangent K=36 B={B} {name}, {case}: max_abs_err={abs_err:.3e} "
+                  f"rel={rel:.3e} (limit {EDGE_LIMITS[dtype]:.0e})", flush=True)
+            check(math.isfinite(rel) and rel <= EDGE_LIMITS[dtype],
+                  f"edge_tangent B={B} {name} {case}: rel error {rel:.3e}")
+        if dtype == torch.bfloat16:
+            ms = cuda_ms(lambda: et.edge_tangent(**args), 20)
+            timed = dict(ms=ms, **bound(edge_flop(B * n * n, LJ13_EDGE["K"], 3, 128),
+                                         nbytes(args, et.edge_tangent(**args)), BF16_FLOPS))
+        del args, cases
+
+    cnf = cnfs[torch.float32]
+    w = cnf.fused_weights()
+    v, d = fused_trace.egnn_value_and_div_fused(cnf.field, x, t, feats, w)
+    v_p, d_p = fused_trace.egnn_value_and_div_fused(cnf.field, x, t, feats, w, use_kernel=False)
+    offset = 3 * cnf.field.egnn.final_scaling.detach()
+    v_rel, net_rel = rel_err(v, v_p), rel_err(d + offset, d_p + offset)
+    print(f"[eval] fused_trace B={B} f32 at per-sample t: v rel {v_rel:.3e}, network trace rel "
+          f"{net_rel:.3e} (limit {F32_LIMIT:.0e} each)", flush=True)
+    check(math.isfinite(v_rel) and v_rel <= F32_LIMIT, f"fused B={B} v rel {v_rel:.3e}")
+    check(math.isfinite(net_rel) and net_rel <= F32_LIMIT, f"fused B={B} trace rel {net_rel:.3e}")
+    return timed
+
+
+def phase_evaluation(sampling, score, setup, energies, et, fused_trace, card: str) -> dict:
+    """The evaluation path at the LJ13 config width, adaptive Dopri5 at the
+    `SolveConfig()` defaults: (a) f32 through the edge kernel against the
+    plain version and the control, and with two rows frozen as NaN; both
+    kernels against their plain versions at this path's shapes; (b) the
+    `score` entry point's round trip; (c) bf16 evaluation with the LJ
+    target; (d) the fused trace."""
+    import numpy as np
+
+    from ecnf_tpu_torch.cnf.build import build_cnf
+    from ecnf_tpu_torch.convert import flatten, to_flax
+
+    start = time.perf_counter()
+    n, B = 13, EVAL_B
+    cnf = f32_cnf(n, (128,) * 3, 64, 3, seed=12)
+    cnf_bf = build_cnf(
+        n_frames=n, dim=3, sigma_min=0.01, base_scale=1.0, n_blocks_egnn=3, mlp_units=(128,) * 3,
+        n_invariant_feat_hidden=64, time_embedding_dim=8, n_features=1, compute_dtype="bfloat16",
+        device="cuda",
+    )
+    cnf_bf.field.load_state_dict(cnf.field.state_dict())
+    feats = torch.zeros((B, n), dtype=torch.int64, device="cuda")
+    x0 = cnf.sample_base((B,), generator=torch.Generator().manual_seed(13))
+    cfg = sampling.SolveConfig()
+    plain_cfg = dataclasses.replace(cfg, structured_tangent_kernel=False)
+    launches = {}
+
+    def solve(x0_, name, cfg_=cfg):
+        zero_counts()
+        with SolveRecorder(sampling) as rec:
+            x1, lq = sampling.sample_and_log_prob_cnf(cnf, B, feats, cfg=cfg_, x0=x0_)
+        launches[name] = counts()
+        row = rec.rows()[0]
+        print(f"[eval] {name}: {solve_line(row)}", flush=True)
+        return dict(x1=x1, lq=lq, delta=rec.solves[0][3][:, -1], row=row)
+
+    # (a) f32, kernel against plain, same x0.
+    kernel = solve(x0, "(a) f32 kernel")
+    check(launches["(a) f32 kernel"]["edge_tangent"] == 3 * kernel["row"]["evals"],
+          f"(a) edge launches {launches['(a) f32 kernel']} for {kernel['row']['evals']} evaluations")
+    plain = solve(x0, "(a) f32 plain", plain_cfg)
+    check(launches["(a) f32 plain"]["edge_tangent"] == 0, "the plain solve launched the kernel")
+    check(finite_solve(plain), "(a) plain: non-finite output")
+    # The control: the plain path against itself from x0 one ulp up and down.
+    gaps = []
+    for way, towards in (("up", math.inf), ("down", -math.inf)):
+        name = f"(a) control: plain, x0 one ulp {way}"
+        nudged = solve(torch.nextafter(x0, torch.full_like(x0, towards)), name, plain_cfg)
+        gaps.append(solve_gaps(nudged, plain))
+        print(gap_line(f"{name} vs plain", gaps[-1]), flush=True)
+        check(finite_solve(nudged) and steps_within(gaps[-1]), f"{name}: non-finite or beyond the slack")
+    control = {k: max(g[k] for g in gaps) for k in ("x1", "delta")}
+    check(control["x1"] > 0 and control["delta"] > 0, f"the control did not part: {control}")
+    compare_to_control("(a) f32 kernel vs plain", kernel, plain, control)
+    # Two rows frozen as NaN (a diverged sample) leave every other row as it was.
+    frozen = [5, 40]
+    x0_nan = x0.clone()
+    x0_nan[frozen] = float("nan")
+    nan = solve(x0_nan, "(a) f32 kernel, rows 5 and 40 NaN")
+    keep = torch.ones(B, dtype=torch.bool, device="cuda")
+    keep[frozen] = False
+    same = torch.equal(nan["x1"][keep], kernel["x1"][keep]) and torch.equal(nan["lq"][keep], kernel["lq"][keep])
+    print(f"[eval] (a) NaN rows: other rows identical to the solve without them: {same}; "
+          f"NaN rows non-finite: {not bool(torch.isfinite(nan['lq'][~keep]).any())}", flush=True)
+    check(same and not bool(torch.isfinite(nan["lq"][~keep]).any()), "(a) NaN rows leaked or faulted")
+
+    # Both kernels at this path's shapes, on (a)'s samples.
+    edge = eval_kernel_checks(et, fused_trace, {torch.float32: cnf, torch.bfloat16: cnf_bf},
+                              kernel["x1"], feats)
+
+    # (b) the score entry point on (a)'s samples and weights, adaptive.
+    out_dir = Path(__file__).resolve().parent / "build" / "eval"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    np.savez(out_dir / "params.npz", **flatten(to_flax(cnf.field)))
+    np.save(out_dir / "samples.npy", kernel["x1"].reshape(B, n, 3).cpu().numpy())
+    zero_counts()
+    with SolveRecorder(sampling) as rec:
+        scored = score.main(["--data", str(out_dir / "samples.npy"), "--params-npz",
+                             str(out_dir / "params.npz"), "--batch-size", str(B), "--dtype",
+                             "float32", "--device", "cuda"])
+    launches["(b) score"] = counts()
+    row_b = rec.rows()[0]
+    log_p, log_q = torch.from_numpy(scored["log_p"]), kernel["lq"].cpu()
+    gap = (log_p - log_q).abs().max().item()
+    jax_share = ((log_p - log_q).abs() / (ROUND_TRIP_TOL + ROUND_TRIP_TOL * log_q.abs())).max().item()
+    print(f"[eval] (b) score round trip: {solve_line(row_b)}; |log p - log q| max {gap:.3e}, "
+          f"{gap / control['delta']:.2f} of the control's delta gap (limit {EVAL_CONTROL_TIMES:g}); "
+          f"{jax_share:.3f} of the JAX CPU round trip's 1e-3 + 1e-3 |log q| (limit 1)", flush=True)
+    check(launches["(b) score"]["edge_tangent"] == 3 * row_b["evals"], f"(b) launches {launches['(b) score']}")
+    check(bool(np.isfinite(scored["log_p"]).all()), "(b) non-finite log p")
+    check(jax_share <= 1 and gap <= EVAL_CONTROL_TIMES * control["delta"], f"(b) round trip gap {gap:.3e}")
+
+    # (c) bf16, the config's dtype: the evaluation with the LJ target on a
+    # stand-in test set, (a)'s zero-CoM samples.
+    test_pos = kernel["x1"].reshape(B, n, 3)
+    test_pos = (test_pos - test_pos.mean(dim=1, keepdim=True)).reshape(B, -1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with SolveRecorder(sampling) as rec:
+        t0 = time.perf_counter()
+        info = setup.evaluate(
+            cnf_bf, test_pos, feats, feats[0], B, energies.lennard_jones_log_prob,
+            n_model_samples=EVAL_RV_SAMPLES, cfg=cfg, generator=torch.Generator().manual_seed(14),
+        )
+        wall = time.perf_counter() - t0
+    launches["(c) bf16 evaluate"] = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = rec.rows()
+    for name, r in zip(["test batch"] + [f"rv batch {i}" for i in range(1, len(rows))], rows):
+        print(f"[eval] (c) bf16 {name}: {solve_line(r)}", flush=True)
+    evals = sum(r["evals"] for r in rows)
+    solve_ms = sum(r["ms"] for r in rows)
+    rv_ms = sum(r["ms"] for r in rows[1:])
+    edge_launches = launches["(c) bf16 evaluate"]["edge_tangent"]
+    sync_s = sum(r["sync_s"] for r in rows)
+    syncs = sum(r["syncs"] for r in rows)
+    nan_rows, all_rows = sum(r["nan_rows"] for r in rows), sum(r["rows"] for r in rows)
+    print(
+        f"[eval] (c) bf16 evaluation (LJ13 width, eval batch {B}, rv_ess from "
+        f"{EVAL_RV_SAMPLES} model samples in {len(rows) - 1} batches): "
+        + ", ".join(f"{k} {v:.6g}" for k, v in info.items())
+        + f"; {len(rows)} solves, {sum(r['attempts'] for r in rows)} attempts, {evals} field "
+        f"evaluations, {edge_launches} edge-kernel launches, {syncs} host syncs "
+        f"({sync_s * 1e3:.1f} ms waiting, {100 * sync_s / (solve_ms / 1e3):.2f}% of the solves), "
+        f"NaN share {nan_rows}/{all_rows}; one batch (the test batch) {rows[0]['ms']:.1f} ms by "
+        f"CUDA events; reverse-ESS loop {EVAL_RV_SAMPLES / (rv_ms / 1e3):.1f} samples/s; "
+        f"evaluate {wall:.2f} s wall; edge kernel {edge['ms']:.3f} ms a launch at K=36 B={B} bf16 "
+        f"({rate_line(edge, edge['ms'])}), {edge_launches} x that = "
+        f"{100 * edge_launches * edge['ms'] / solve_ms:.1f}% of the solves; "
+        f"peak device memory {peak_gb:.2f} GB; on {card}",
+        flush=True,
+    )
+    check(set(info) == {"test_log_lik", "test_log_prob_base", "test_delta_log_lik",
+                        "eval_ode_steps", "forward_ess", "rv_ess"}, f"(c) keys {sorted(info)}")
+    check(edge_launches == 3 * evals, f"(c) edge launches {edge_launches} for {evals} evaluations")
+    exhausted = [r for r in rows if r["attempts"] >= cfg.max_steps]
+    if exhausted:
+        print(f"[eval] (c) FINDING: {len(exhausted)} bf16 solve(s) exhausted max_steps="
+              f"{cfg.max_steps} at rtol=atol={cfg.rtol:g}; their unfinished rows are NaN", flush=True)
+
+    # (d) f32 with fused_trace=True, the same solve as (a), against the plain path.
+    fused = solve(x0, "(d) f32 fused trace", dataclasses.replace(cfg, fused_trace=True))
+    check(launches["(d) f32 fused trace"]["fused_trace"] == fused["row"]["evals"],
+          f"(d) fused launches {launches['(d) f32 fused trace']} for {fused['row']['evals']} evaluations")
+    compare_to_control("(d) f32 fused vs (a) plain", fused, plain, control)
+
+    adaptive_edge = sum(v["edge_tangent"] for v in launches.values())
+    print(f"[eval] edge_tangent launches on the adaptive evaluation path: "
+          + ", ".join(f"{k} {v['edge_tangent']}" for k, v in launches.items())
+          + f"; {adaptive_edge} in all; fused_trace {launches['(d) f32 fused trace']['fused_trace']}; "
+          f"phase {time.perf_counter() - start:.1f} s", flush=True)
+    return dict(edge_launches=adaptive_edge, info=info)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
-    from ecnf_tpu_torch import sample
+    from ecnf_tpu_torch import sample, score
     from ecnf_tpu_torch.cnf import sampling
+    from ecnf_tpu_torch.targets import energies
+    from ecnf_tpu_torch.training import setup
     from ecnf_tpu_torch.ops import cuda_build, egcl, fused_trace, ode
     from ecnf_tpu_torch.ops import edge_tangent as et
 
@@ -893,6 +1231,7 @@ def main() -> None:
     phase_timing(sample, sampling, fused_trace, card, edge[("lj13", "bfloat16")]["ms"],
                  fused["lj13"]["ms"])
     phase_train(card)
+    phase_evaluation(sampling, score, setup, energies, et, fused_trace, card)
 
     # Per kernel, its main-path shapes: the LJ13 structured solve's bf16
     # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches)

@@ -1,1 +1,1 @@
-"""PyTorch port of ecnf_tpu: exact-log-density sampling of the EGNN flow on CUDA."""
+"""PyTorch port of ecnf_tpu: sampling, scoring, training and evaluation of the EGNN flow on CUDA."""

@@ -1,9 +1,10 @@
 """CNF sampling and exact / Hutchinson log-density (port of `ecnf_tpu/cnf/sampling.py`).
 
-One batched fixed-step ODE solve per call; the divergence rides in the
-state as an extra column (``[B, D+1]``).  Noise comes from an explicit
-``torch.Generator`` or is injected (``x0``, ``eps``), so that a run can be
-compared with the JAX package on the same inputs.
+One batched ODE solve per call, adaptive Dopri5 by default or fixed-step
+rk4 / Dopri5; the divergence rides in the state as an extra column
+(``[B, D+1]``), so the adaptive error norm covers it too.  Noise comes
+from an explicit ``torch.Generator`` or is injected (``x0``, ``eps``), so
+that a run can be compared with the JAX package on the same inputs.
 """
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -25,8 +26,11 @@ Tensor = torch.Tensor
 class SolveConfig:
     """ODE-solve settings.
 
-    Only fixed-step solves are ported (``use_fixed_step_size=True``);
-    ``method`` is ``"dopri5"`` or ``"rk4"``.  ``structured_tangent`` selects
+    The default is the JAX package's: adaptive Dopri5 at rtol = atol =
+    dtmin = 1e-5 with at most ``max_steps`` attempts.  With
+    ``use_fixed_step_size=True`` the solve takes equal steps of
+    ``step_size`` with ``method`` ``"dopri5"`` or ``"rk4"``; adaptive solves
+    ignore ``method``.  ``structured_tangent`` selects
     the hand-linearised trace (`ops/tangent.py`) over ``torch.func.jvp``;
     ``structured_tangent_kernel`` runs its edge chains through the CUDA
     kernel when the tensors are on a card (False forces the plain version).
@@ -37,7 +41,11 @@ class SolveConfig:
     """
 
     use_fixed_step_size: bool = False
+    rtol: float = 1e-5
+    atol: float = 1e-5
+    dtmin: float = 1e-5
     step_size: float = 0.05
+    max_steps: int = 4096
     method: str = "dopri5"
     hutchinson_probes: int = 1
     use_exact_trace_plan: bool = True
@@ -50,7 +58,11 @@ def _solve(func, y0: Tensor, t0: float, t1: float, cfg: SolveConfig) -> Tuple[Te
     return odeint(
         func, y0, t0, t1,
         use_fixed_step_size=cfg.use_fixed_step_size,
+        rtol=cfg.rtol,
+        atol=cfg.atol,
+        dtmin=cfg.dtmin,
         step_size=cfg.step_size,
+        max_steps=cfg.max_steps,
         method=cfg.method,
     )
 
@@ -180,12 +192,14 @@ def sample_and_log_prob_cnf(
     generator: Optional[torch.Generator] = None,
     x0: Optional[Tensor] = None,
     eps: Optional[Tensor] = None,
-) -> Tuple[Tensor, Tensor]:
+    return_stats: bool = False,
+):
     """Sample and score ``[batch_size, D]`` points in one forward solve.
 
-    Returns ``(x1, log_q)`` with ``log_q = log_prob_base(x0) - delta``.
-    ``x0`` (base samples) and ``eps`` (probes) may be injected; otherwise
-    they are drawn from ``generator``, x0 first.
+    Returns ``(x1, log_q)`` (plus `ODEStats` when ``return_stats``) with
+    ``log_q = log_prob_base(x0) - delta``.  ``x0`` (base samples) and
+    ``eps`` (probes) may be injected; otherwise they are drawn from
+    ``generator``, x0 first.
     """
     if x0 is None:
         x0 = cnf.sample_base((batch_size,), generator=generator)
@@ -195,6 +209,8 @@ def sample_and_log_prob_cnf(
         eps = _draw_probes(generator, B, D, cfg, x0.device)
     func = _augmented_field(cnf, features, approx, eps, cfg)
     y0 = torch.cat([x0, torch.zeros((B, 1), dtype=x0.dtype, device=x0.device)], dim=-1)
-    y1, _ = _solve(func, y0, 0.0, 1.0, cfg)
+    y1, stats = _solve(func, y0, 0.0, 1.0, cfg)
     x1, delta_log_lik = y1[:, :-1], y1[:, -1]
+    if return_stats:
+        return x1, log_prob_base - delta_log_lik, stats
     return x1, log_prob_base - delta_log_lik

@@ -61,12 +61,14 @@ def _flax_path(name: str) -> str:
     raise KeyError(f"unknown port parameter {name!r}")
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested tree -> ``{"/"-joined path: numpy leaf}`` (the npz layout
+    that ``--params-npz`` and `from_flax` read)."""
     flat = {}
     for key, value in tree.items():
         path = f"{prefix}{key}"
         if isinstance(value, Mapping):
-            flat.update(_flatten(value, path + "/"))
+            flat.update(flatten(value, path + "/"))
         else:
             flat[path] = np.asarray(value)
     return flat
@@ -75,7 +77,7 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax parameters of the EGNN field -> the port's ``state_dict``."""
     state = {}
-    for path, value in _flatten(params).items():
+    for path, value in flatten(params).items():
         path = path[len("params/"):] if path.startswith("params/") else path
         name = _torch_name(path)
         value = np.array(value, dtype=np.float32)  # a writable copy

@@ -15,3 +15,10 @@ def dense_edge_mask(
     sender ``j``.
     """
     return 1.0 - torch.eye(n_nodes, dtype=dtype, device=device)
+
+
+def pairwise_difference(positions: torch.Tensor) -> torch.Tensor:
+    """Dense pairwise differences, receiver minus sender:
+    ``out[..., i, j, :] = positions[..., i, :] - positions[..., j, :]``
+    for ``positions [..., N, D]`` -> ``[..., N, N, D]``."""
+    return positions[..., :, None, :] - positions[..., None, :, :]

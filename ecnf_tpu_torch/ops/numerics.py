@@ -1,6 +1,6 @@
 """Numerical utilities (port of `ecnf_tpu/ops/numerics.py`)."""
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,3 +30,26 @@ def timestep_embedding(timesteps: torch.Tensor, embedding_dim: int) -> torch.Ten
     )
     args = t[:, None] * freqs[None, :]
     return torch.cat([torch.sin(args), torch.cos(args)], dim=1)
+
+
+def maybe_masked_mean(array: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean of a rank-1 array, restricted by a 0/1 ``mask`` when one is
+    given; 0 when the mask is empty."""
+    if mask is None:
+        return torch.mean(array)
+    array = torch.where(mask.bool(), array, torch.zeros_like(array))
+    divisor = torch.sum(mask)
+    multiplier = torch.where(divisor == 0, 0.0, 1.0 / divisor)
+    return torch.sum(array) * multiplier
+
+
+def first_leaf(tree) -> torch.Tensor:
+    """The first tensor of ``tree``: a tensor, or nested tuples or lists."""
+    while isinstance(tree, (tuple, list)):
+        tree = tree[0]
+    return tree
+
+
+def get_leading_axis_tree(tree, n_dims: int = 1) -> Tuple[int, ...]:
+    """Leading shape of the first tensor of ``tree``."""
+    return tuple(first_leaf(tree).shape[:n_dims])

@@ -1,2 +1,3 @@
-"""Flow-matching training (port of `ecnf_tpu/training`): `optim`, `state`
-and the epoch runner in `setup`.  Nothing is imported eagerly."""
+"""Flow-matching training and evaluation (port of `ecnf_tpu/training`):
+`optim`, `state`, `evaluation`, and in `setup` the epoch runner and the
+evaluation functions.  Nothing is imported eagerly."""

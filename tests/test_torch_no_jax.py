@@ -1,5 +1,6 @@
-"""The port imports no JAX: every `ecnf_tpu_torch` module, and the sampling
-entry point's ``--help``, load in a process where ``import jax`` fails."""
+"""The port imports no JAX: every `ecnf_tpu_torch` module, and the
+``--help`` of the sampling and scoring entry points, load in a process
+where ``import jax`` fails."""
 import pkgutil
 import subprocess
 import sys
@@ -19,8 +20,12 @@ for name in names:
     importlib.import_module(name)
 assert not any(n == "jax" or n.startswith(("jax.", "ecnf_tpu.")) for n in sys.modules if sys.modules[n] is not None)
 print(len(names))
-sys.argv = ["sample", "--help"]
-runpy.run_module("ecnf_tpu_torch.sample", run_name="__main__")
+for program in ("sample", "score"):
+    sys.argv = [program, "--help"]
+    try:
+        runpy.run_module(f"ecnf_tpu_torch.{program}", run_name="__main__")
+    except SystemExit as exit:
+        assert exit.code == 0, exit.code
 """
 
 
@@ -35,4 +40,5 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
     assert int(lines[0]) == expected >= 15
-    assert "--params-npz" in proc.stdout
+    assert proc.stdout.count("--params-npz") >= 2
+    assert "--hutchinson-probes" in proc.stdout and "--data" in proc.stdout

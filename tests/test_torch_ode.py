@@ -64,9 +64,9 @@ def test_step_count_and_signed_dt():
     assert stats.num_steps == 2 and len(seen) == 1 + 2 * 6  # FSAL
 
 
-def test_adaptive_and_unknown_method_raise():
+def test_unknown_method_raises():
     y0 = torch.zeros(2, 1)
-    with pytest.raises(NotImplementedError):
-        odeint(_torch_field, y0, 0.0, 1.0, use_fixed_step_size=False)
     with pytest.raises(ValueError):
         odeint_fixed(_torch_field, y0, 0.0, 1.0, 0.1, method="euler")
+    with pytest.raises(ValueError):
+        odeint(_torch_field, y0, 0.0, 1.0, use_fixed_step_size=True, method="euler")

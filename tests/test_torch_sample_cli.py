@@ -3,7 +3,8 @@
 The CLI saves log q (``--log-prob-output``), serves per-atom node features
 (``--features arange``, so an ALDP parameter file with ``Embed_0`` of shape
 ``[n_nodes, H]`` loads), and reports its first batch apart from the steady
-rate.  `build_cnf` builds on the card unless the caller asks for the CPU.
+rate; ``--method adaptive`` solves at `SolveConfig()`.  `build_cnf` builds
+on the card unless the caller asks for the CPU.
 """
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ import torch
 
 from ecnf_tpu_torch import sample
 from ecnf_tpu_torch.cnf.build import build_cnf
+from ecnf_tpu_torch.cnf.sampling import SolveConfig, sample_and_log_prob_cnf
 from ecnf_tpu_torch.convert import to_flax
 
 SMALL = [
@@ -107,3 +109,21 @@ def test_build_cnf_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_cnf(**kw)
+
+
+def test_adaptive_method_matches_sample_and_log_prob_at_solve_config():
+    # `--method adaptive` is `SolveConfig()` with the given rtol/atol: the
+    # CLI's samples and log q equal a direct call on the same weights and
+    # the same seeded draws.
+    argv = SMALL + ["--n-samples", "4", "--with-log-prob", "--method", "adaptive", "--seed", "3"]
+    out = sample.main(argv)
+    args = sample.build_parser().parse_args(argv)
+    cnf = sample.build_from_args(args, torch.device("cpu"))
+    features = torch.zeros((4, 5), dtype=torch.int64)
+    x1, log_q = sample_and_log_prob_cnf(
+        cnf, 4, features, cfg=SolveConfig(), generator=torch.Generator().manual_seed(3)
+    )
+    np.testing.assert_array_equal(out["samples"], x1.numpy())
+    np.testing.assert_array_equal(out["log_q"], log_q.numpy())
+    cfg = sample.solve_config(sample.build_parser().parse_args(argv + ["--rtol", "1e-3"]))
+    assert cfg == SolveConfig(rtol=1e-3, step_size=0.5)  # SMALL sets --step-size 0.5

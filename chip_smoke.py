@@ -63,7 +63,24 @@ Phases, one or more lines each:
    test_log_lik, forward_ess, rv_ess (2 batches of 64), eval_ode_steps,
    attempts, evaluations, launches, syncs, the NaN share, one batch's time,
    the reverse-ESS rate, the edge kernel's share and peak memory; (d) the
-   f32 solve of (a) with ``fused_trace=True`` against (a).
+   f32 solve of (a) with ``fused_trace=True`` against (a);
+12. the training program, DW4 at `examples/configs/dw4.yaml`'s width: (a)
+   the DW4 data regenerated by HMC on the card at the JAX package's
+   settings, with its acceptance, split-R-hat, ESS, mean energy and mean
+   distance beside the JAX run's and the mixing gate applied, and a few
+   steps of the captured (CUDA graph) HMC step against the eager one, a
+   stuck chain restarted in both; (b)
+   ``ecnf_tpu_torch.examples.dw4.run`` on that data, cut to 2 iterations,
+   1 evaluation, 2 checkpoints and 128 test points: 30 finite losses,
+   evaluations at -1 and 1 with finite test_log_lik, forward_ess in [0, 1]
+   and eval_ode_steps > 0, 3 edge launches per field evaluation, the
+   checkpoints, ms per train step by CUDA events, seconds per evaluation,
+   peak memory; (c) a resumed run to 3 iterations: no evaluation at -1,
+   one epoch, an evaluation at 2, ``state_00000002``, the checkpoint's
+   parameters bit for bit those of (b); (d) the edge kernel at DW4's shape
+   (B=64, N=4, K=6, U=128) against its plain version in bf16 and f32, on
+   random inputs and on the inputs captured from one field evaluation
+   inside (c)'s evaluation, and its share of (b)'s and (c)'s evaluations.
 
 Bounds: the larger of the bytes a kernel must move (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
@@ -166,6 +183,22 @@ EVAL_STEP_SHARE = 0.25
 # the CPU (`tests/test_cnf_roundtrip.py:75`, 1e-3 + 1e-3 |log q|), and the
 # largest gap within EVAL_CONTROL_TIMES times the control's delta gap.
 ROUND_TRIP_TOL = 1e-3
+# Training-program phase: `examples/configs/dw4.yaml` at its full width (3
+# blocks of [128]*3, hidden 64, time embedding 8, bf16, batch 64, train set
+# 1000: 15 steps an epoch) through `ecnf_tpu_torch.examples.dw4.run`, cut to
+# these overrides; its edge chain at DW4's shape (K = (N - 1) D = 6).
+DW4_CUTS = ("training.n_training_iter=2", "training.n_eval=1", "training.n_checkpoints=2",
+            "training.test_set_size=128")
+DW4_EDGE = dict(K=6, B=64, N=4, U=128, L=3)
+DW4_STEPS_PER_EPOCH = 1000 // 64
+# The edge launch (c)'s run keeps for (d): field evaluation 150 of its
+# evaluation's first solve, blocks 0-2.
+DW4_CAPTURE_AT = 3 * 150
+# The JAX package's DW4 regeneration (`BASELINE.md:215`), printed beside the port's.
+DW4_JAX_HMC = "R-hat 1.001 / 1.018, ESS 11,460 / 3,008, mean energy -22.54, mean distance 4.042"
+# The captured HMC step against the eager one, relative to max |x|.
+HMC_GRAPH_LIMIT = 1e-5
+HMC_GRAPH_STEPS = 20
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 and TF32 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -1195,6 +1228,213 @@ def phase_evaluation(sampling, score, setup, energies, et, fused_trace, card: st
     return dict(edge_launches=adaptive_edge, info=info)
 
 
+def _timed(module, name: str, out: list, cuda_events: bool):
+    """Wrap ``module.name`` to record each call's ms (CUDA events) or
+    seconds (host clock after a synchronise); returns the original."""
+    orig = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        if cuda_events:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            result = orig(*args, **kwargs)
+            end.record()
+            out.append((start, end))
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return result
+
+    setattr(module, name, timed)
+    return orig
+
+
+def _clone_args(args) -> tuple:
+    return tuple([t.clone() for t in a] if isinstance(a, (list, tuple)) else a.clone() for a in args)
+
+
+def _dw4_program(dw4, common, setup, sampling, et, overrides, data_dir, capture_at=None) -> dict:
+    """One run of the DW4 entry point's ``run`` with its epochs timed by
+    CUDA events, its evaluations by the host clock, every solve recorded
+    and the kernels' launches counted.  ``capture_at`` (a multiple of 3)
+    keeps the arguments of that edge launch of the run and the next two:
+    the three blocks of one field evaluation inside the loop."""
+    cfg = common.load_experiment_config(str(common.CONFIG_DIR / "dw4.yaml"), False, overrides)
+    epochs, evals, captured = [], [], []
+    orig_epoch = _timed(setup, "epoch", epochs, cuda_events=True)
+    orig_eval = _timed(setup, "evaluate", evals, cuda_events=False)
+    orig_edge = et.edge_tangent
+
+    def capturing(*args, **kwargs):
+        if capture_at is not None and capture_at <= capturing.launch_count < capture_at + 3:
+            captured.append(_clone_args(args))
+        return orig_edge(*args, **kwargs)
+
+    # The kernel's wrapper counts its launches on whatever its module name
+    # holds, here `capturing`; the count goes back to the wrapper after.
+    capturing.launch_count = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    et.edge_tangent = capturing
+    t0 = time.perf_counter()
+    try:
+        with SolveRecorder(sampling) as rec:
+            logger, state = dw4.run(cfg, device="cuda", data_dir=data_dir)
+    finally:
+        setup.epoch, setup.evaluate, et.edge_tangent = orig_epoch, orig_eval, orig_edge
+        orig_edge.launch_count += capturing.launch_count
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(cfg=cfg, history=logger.history, state=state, launches=counts(), rows=rec.rows(),
+                epoch_ms=[a.elapsed_time(b) for a, b in epochs], eval_s=evals, wall=wall,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, captured=captured)
+
+
+def _check_program(name: str, run: dict, iterations: list, n_evals: int) -> None:
+    h = run["history"]
+    losses = h.get("loss", [])
+    n_steps = DW4_STEPS_PER_EPOCH * sum(1 for i in set(iterations) if i >= 0)
+    check(h["iteration"] == [float(i) for i in iterations], f"{name}: iterations {h['iteration']}")
+    check(len(losses) == n_steps and all(math.isfinite(v) for v in losses),
+          f"{name}: {len(losses)} losses, expected {n_steps} finite")
+    check(len(h.get("test_log_lik", [])) == n_evals and all(math.isfinite(v) for v in h["test_log_lik"]),
+          f"{name}: test_log_lik {h.get('test_log_lik')}")
+    check(all(0.0 <= v <= 1.0 for v in h["forward_ess"]), f"{name}: forward_ess {h['forward_ess']}")
+    check(all(v > 0 for v in h["eval_ode_steps"]), f"{name}: eval_ode_steps {h['eval_ode_steps']}")
+    evals = sum(r["evals"] for r in run["rows"])
+    launched = run["launches"]
+    check(launched["edge_tangent"] == 3 * evals and launched["egcl"] == launched["fused_trace"] == 0,
+          f"{name}: launches {launched} for {evals} field evaluations")
+    steps = ", ".join(f"{ms:.1f} ms ({ms / DW4_STEPS_PER_EPOCH:.2f} ms/step)" for ms in run["epoch_ms"])
+    print(f"[dw4] {name}: iterations logged {sorted(set(h['iteration']))}; {len(losses)} losses "
+          f"{losses[0]:.4f} .. {losses[-1]:.4f}; evaluations: "
+          + "; ".join(f"test_log_lik {a:.4f} forward_ess {b:.4g} eval_ode_steps {c:.2f}"
+                      for a, b, c in zip(h["test_log_lik"], h["forward_ess"], h["eval_ode_steps"]))
+          + f"; epochs by CUDA events {steps}; seconds per evaluation "
+          + ", ".join(f"{s:.2f}" for s in run["eval_s"])
+          + f"; {len(run['rows'])} solves, {sum(r['attempts'] for r in run['rows'])} attempts, "
+          f"{evals} field evaluations, {launched['edge_tangent']} edge launches (3 per evaluation); "
+          f"peak device memory {run['peak_gb']:.2f} GB; {run['wall']:.1f} s wall", flush=True)
+
+
+def phase_training_program(et, card: str) -> dict:
+    """The training program at DW4's config width: (a) data by HMC on the
+    card, (b) the entry point's run, (c) resume, (d) the edge kernel at
+    this path's shape."""
+    import numpy as np
+
+    from ecnf_tpu_torch.cnf import sampling
+    from ecnf_tpu_torch.examples import common, dw4
+    from ecnf_tpu_torch.targets import data, energies, mcmc
+    from ecnf_tpu_torch.training import checkpoints, setup
+
+    start = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "dw4"
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir, save_dir = root / "data", root / "run"
+
+    # (a) the captured HMC step against the eager one, with chain 5 started
+    # at NaN (it accepts nothing) and restarted half-way through a burn-in.
+    gen = torch.Generator().manual_seed(21)
+    total = HMC_GRAPH_STEPS
+    x0 = torch.randn(64, 4, 2, generator=gen)
+    x0[5] = float("nan")
+    draws = dict(momenta=torch.randn(total, 64, 4, 2, generator=gen), uniforms=torch.rand(total, 64, generator=gen))
+    hmc = dict(n_samples_per_chain=total - total // 2, n_chains=64, n_nodes=4, dim=2, step_size=0.12,
+               n_leapfrog=15, burn_in=total // 2, thin=1, init_positions=x0, device="cuda",
+               restart_stuck_at=total // 4, **draws)
+    graphed, acc_g = mcmc.run_hmc(energies.double_well_log_prob, cuda_graph=True, **hmc)
+    eager, acc_e = mcmc.run_hmc(energies.double_well_log_prob, cuda_graph=False, **hmc)
+    gap = ((graphed - eager).abs().max() / eager.abs().max()).item()
+    print(f"[dw4] (a) HMC step as a CUDA graph vs eager, {total} steps of 64 chains (chain 5 NaN; "
+          f"chains without an accepted step restarted at step {total // 4}): rel {gap:.3e} (limit "
+          f"{HMC_GRAPH_LIMIT:.0e}), acceptance {acc_g:.4f} vs {acc_e:.4f}", flush=True)
+    check(bool(torch.isfinite(graphed).all()) and gap <= HMC_GRAPH_LIMIT and acc_g == acc_e,
+          f"graphed HMC step rel {gap:.3e}")
+    regen = data._generate_dw4_data(data_dir / data.DW4_CACHE, "cuda")
+    r = regen.report
+    hmc = data.DW4_HMC
+    print(f"[dw4] (a) DW4 data by HMC on the card ({regen.data.shape[0]} configurations, "
+          f"{hmc['n_chains']} chains x {hmc['n_samples_per_chain']}, "
+          f"{hmc['burn_in'] + hmc['n_samples_per_chain'] * hmc['thin']} steps x "
+          f"{hmc['n_leapfrog']} leapfrog): acceptance {regen.acceptance:.4f}, R-hat "
+          f"{r['rhat_energy']:.4f} / {r['rhat_dist']:.4f} (energy / distance), ESS "
+          f"{r['ess_energy']:.0f} / {r['ess_dist']:.0f}, mean energy {r['mean_energy']:.4f}, mean "
+          f"distance {r['mean_dist']:.4f}, {regen.seconds:.1f} s; gate passed (R-hat < 1.05, ESS > "
+          f"{10 * hmc['n_chains']}); the JAX run: {DW4_JAX_HMC}", flush=True)
+    check(regen.data.shape == (12800, 4, 2) and bool(np.isfinite(regen.data).all()), "DW4 data")
+
+    # (b) the program, cut.
+    cuts = list(DW4_CUTS) + [f"training.save_dir={save_dir}"]
+    print(f"[dw4] (b) dw4.yaml cut by {' '.join(cuts)}", flush=True)
+    run_b = _dw4_program(dw4, common, setup, sampling, et, cuts, data_dir)
+    _check_program("(b) run", run_b, [-1] + [0] * 15 + [1] * 15 + [1], n_evals=2)
+    ckpts = save_dir / "model_checkpoints"
+    names = sorted(p.name for p in ckpts.iterdir())
+    check(names == ["state_00000000", "state_00000001"], f"(b) checkpoints {names}")
+
+    # (c) resume to 3 iterations from state_00000001.
+    saved = checkpoints.restore_serving_params(str(ckpts / "state_00000001"))
+    same = all(torch.equal(saved[k], v.cpu()) for k, v in run_b["state"].params.items())
+    check(same and saved.keys() == run_b["state"].params.keys(), "(c) saved parameters differ")
+    cuts_c = [c for c in cuts if "n_training_iter" not in c] + [
+        "training.n_training_iter=3", "training.resume=true"]
+    run_c = _dw4_program(dw4, common, setup, sampling, et, cuts_c, data_dir,
+                         capture_at=DW4_CAPTURE_AT)
+    _check_program("(c) resumed run", run_c, [2] * 15 + [2], n_evals=1)
+    names = sorted(p.name for p in ckpts.iterdir())
+    check(names == ["state_00000000", "state_00000001", "state_00000002"], f"(c) checkpoints {names}")
+    check(run_c["state"].opt_state.count == 3 * DW4_STEPS_PER_EPOCH,
+          f"(c) optimizer count {run_c['state'].opt_state.count}")
+    print(f"[dw4] (c) restored parameters equal (b)'s bit for bit: {same}; optimizer step count "
+          f"{run_c['state'].opt_state.count}", flush=True)
+
+    # (d) the edge kernel at DW4's shape, on random inputs and on the
+    # inputs captured from one field evaluation of (c)'s evaluation (bf16,
+    # the config's dtype; the f32 kernel takes the same values in f32).
+    check(len(run_c["captured"]) == 3, f"(d) captured {len(run_c['captured'])} launches, not 3")
+    to_f32 = lambda a: [t.float() for t in a] if isinstance(a, list) else a.float()
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        args = edge_inputs(**DW4_EDGE, dtype=dtype, seed=23)
+        cases = [("random inputs", (), args)] + [
+            (f"block {i} of field evaluation {DW4_CAPTURE_AT // 3} of (c)'s evaluation",
+             a if dtype == torch.bfloat16 else tuple(to_f32(x) for x in a), {})
+            for i, a in enumerate(run_c["captured"])
+        ]
+        for case, a, k in cases:
+            abs_err, rel = edge_errors(et.edge_tangent(*a, **k), et.edge_tangent_reference(*a, **k))
+            print(f"[dw4] (d) edge_tangent {DW4_EDGE} {name}, {case}: max_abs_err={abs_err:.3e} "
+                  f"rel={rel:.3e} (limit {EDGE_LIMITS[dtype]:.0e})", flush=True)
+            check(math.isfinite(rel) and rel <= EDGE_LIMITS[dtype],
+                  f"DW4 edge_tangent {name} {case}: rel error {rel:.3e}")
+        ms = cuda_ms(lambda: et.edge_tangent(**args), 50)
+        plain_ms = cuda_ms(lambda: et.edge_tangent_reference(**args), 50)
+        K, B, N, U, L = (DW4_EDGE[k] for k in ("K", "B", "N", "U", "L"))
+        b = bound(edge_flop(B * N * N, K, L, U), nbytes(args, et.edge_tangent(**args)),
+                  *((BF16_FLOPS, 1) if dtype == torch.bfloat16 else (TF32_FLOPS, 3)))
+        print(f"[dw4] (d) edge_tangent {name} at DW4's shape: kernel {ms * 1e3:.1f} us, plain "
+              f"{plain_ms * 1e3:.1f} us, {rate_line(b, ms)}", flush=True)
+        timed[name] = dict(ms=ms, plain_ms=plain_ms, **b)
+        del args, cases
+    solve_ms = sum(r["ms"] for r in run_b["rows"] + run_c["rows"])
+    launches = run_b["launches"]["edge_tangent"] + run_c["launches"]["edge_tangent"]
+    share = launches * timed["bfloat16"]["ms"] / solve_ms
+    eval_s = run_b["eval_s"] + run_c["eval_s"]
+    step_ms = [ms / DW4_STEPS_PER_EPOCH for ms in run_b["epoch_ms"] + run_c["epoch_ms"]]
+    print(f"[dw4] (d) the edge kernel in (b) and (c)'s evaluations: {launches} launches x "
+          f"{timed['bfloat16']['ms']:.4f} ms = {100 * share:.1f}% of {solve_ms:.1f} ms of solves "
+          f"(CUDA events); ms per train step {', '.join(f'{v:.2f}' for v in step_ms)} (first epoch "
+          f"first); seconds per evaluation {', '.join(f'{v:.2f}' for v in eval_s)}; phase "
+          f"{time.perf_counter() - start:.1f} s; on {card}", flush=True)
+    return dict(edge=timed, share=share)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
@@ -1232,6 +1472,7 @@ def main() -> None:
                  fused["lj13"]["ms"])
     phase_train(card)
     phase_evaluation(sampling, score, setup, energies, et, fused_trace, card)
+    phase_training_program(et, card)
 
     # Per kernel, its main-path shapes: the LJ13 structured solve's bf16
     # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches)

@@ -72,6 +72,15 @@ class FlatEGNNField(nn.Module):
         return self.egnn(pos, h, t_emb).reshape(B, self.n_nodes * self.dim)
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the CUDA card when None; the card's absence raises,
+    so the CPU runs only when asked for (``device="cpu"``)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
+    return device
+
+
 def build_cnf(
     n_frames: int,
     dim: int,
@@ -94,9 +103,7 @@ def build_cnf(
     default raises.  ``compute_dtype="bfloat16"`` runs the EGNN's MLPs in
     bf16; parameters and geometry stay f32.
     """
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_cnf: no CUDA device; pass device='cpu' to build on the CPU")
+    device = resolve_device(device)
     base = ZeroCoMGaussian(n_nodes=n_frames, dim=dim, scale=base_scale)
     net = FlatEGNNField(
         n_nodes=n_frames,

@@ -1,0 +1,2 @@
+"""The experiment entry points (port of `examples/`): ``python -m
+ecnf_tpu_torch.examples.dw4`` and ``.lj13``."""

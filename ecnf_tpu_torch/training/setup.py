@@ -1,16 +1,23 @@
-"""The epoch runner and the evaluation (port of the ``_epoch`` and the
-evaluation half of `ecnf_tpu/training/setup.py`'s ``setup_training``).
+"""Experiment set-up: config + data + CNF -> `TrainConfig` (port of
+`ecnf_tpu/training/setup.py`): the epoch runner, the evaluation, and
+`setup_training`, which joins them with the optimizer, the logger and the
+data.
 
-The JAX module builds its evaluation as closures over a config; here it
-is plain functions of the CNF and the settings.  The CNF is evaluated
-with the parameters its field holds, so the caller chooses them (the EMA
-parameters at the end of training: ``cnf.field.load_state_dict(
-state.ema_params)``).  Config, data and plots are not ported yet.
+The JAX module builds its evaluation as closures over a config; here the
+evaluation is plain functions of the CNF and the settings, and
+`setup_training` closes over them.  The CNF is evaluated with the
+parameters its field holds, so the caller chooses them (the EMA parameters
+at the end of training).  One card, no mesh.  Plots are not ported yet.
 """
+import copy
+import os
+import pathlib
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ecnf_tpu_torch.cnf.build import build_cnf, resolve_device
 from ecnf_tpu_torch.cnf.core import FlowMatchingCNF
 from ecnf_tpu_torch.cnf.sampling import SolveConfig, get_log_prob, sample_and_log_prob_cnf
 from ecnf_tpu_torch.ops.numerics import maybe_masked_mean
@@ -19,7 +26,11 @@ from ecnf_tpu_torch.training.evaluation import (
     calculate_reverse_ess,
     eval_fn,
 )
-from ecnf_tpu_torch.training.state import TrainingState
+from ecnf_tpu_torch.training.config import ExperimentConfig, config_to_dict
+from ecnf_tpu_torch.training.loggers import WandbLogger, setup_logger
+from ecnf_tpu_torch.training.loop import TrainConfig
+from ecnf_tpu_torch.training.optim import build_optimizer
+from ecnf_tpu_torch.training.state import TrainingState, init_training_state, make_update_fn
 
 Tensor = torch.Tensor
 
@@ -189,3 +200,160 @@ def evaluate(
     if target_log_prob_fn is not None and log_w_fwd is not None:
         info.update(calculate_forward_ess(log_w_fwd, mask=flat_mask))
     return {k: float(v) for k, v in info.items()}
+
+
+# Fields of the schema that the port does not implement, with their
+# defaults: any other value is refused.
+_UNPORTED = {
+    ("training", "use_64_bit"): False,
+    ("training", "profile_dir"): None,
+    ("training", "epochs_per_dispatch"): 1,
+    ("training", "precision"): "float32",
+    ("training", "trace_column_chunk"): None,
+    ("network", "stable_mlp"): False,
+    ("network", "type"): "egnn",
+}
+
+
+def _refuse_unported(cfg: ExperimentConfig) -> None:
+    sections = {"training": cfg.training, "network": cfg.flow.network}
+    for (section, name), default in _UNPORTED.items():
+        value = getattr(sections[section], name)
+        if value != default:
+            raise NotImplementedError(
+                f"{section}.{name}={value!r} is not ported to ecnf_tpu_torch (only {default!r})"
+            )
+
+
+LoadDatasetFn = Callable[[Optional[int], Optional[int]], tuple]
+
+
+def setup_training(
+    cfg: ExperimentConfig,
+    load_dataset: LoadDatasetFn,
+    target_log_prob_fn: Optional[TargetLogProb] = None,
+    device=None,
+) -> TrainConfig:
+    """The `TrainConfig` of an experiment: ``load_dataset(train_set_size,
+    test_set_size) -> (train, test)`` `FullGraphSample`s on ``device``; the
+    data's centre of mass removed; Adam or AdamW over ``n_training_iter x
+    max(n // batch_size, 1)`` steps; the CNF with ``n_features = max + 1``;
+    the evaluation on the test set (with the reverse ESS when
+    ``eval_n_model_samples`` is set and there is a target), on the EMA
+    parameters at the final iteration.
+
+    ``compile_cache`` and ``eval_dispatch_chunk`` tune XLA compilation and
+    dispatch and are ignored; the fields of `_UNPORTED` are refused unless
+    at their defaults; with ``eval_plots`` (the default) a line says that
+    plots are not ported yet, and no plotting solve runs.
+    """
+    _refuse_unported(cfg)
+    device = resolve_device(device)
+    tcfg = cfg.training
+    batch_size = tcfg.batch_size
+
+    logger = setup_logger(
+        cfg.logger, save_dir=tcfg.save_dir or ".", save=tcfg.save,
+        experiment_config=config_to_dict(cfg),
+    )
+    save_path = tcfg.save_dir or "."
+    if tcfg.save_in_wandb_dir:
+        run = getattr(logger, "run", None)
+        if isinstance(logger, WandbLogger) and logger._wandb is not None and run is not None:
+            save_path = os.path.join(str(run.dir), save_path.lstrip(os.sep))
+        else:
+            raise ValueError(
+                "training.save_in_wandb_dir=true requires the wandb logger with a live run "
+                f"(logger: {{wandb: {{...}}}} and the wandb package installed); got "
+                f"{type(logger).__name__}."
+            )
+    pathlib.Path(save_path).mkdir(exist_ok=True, parents=True)
+
+    train_data, test_data = load_dataset(tcfg.train_set_size, tcfg.test_set_size)
+    center = lambda p: (p - p.mean(dim=1, keepdim=True)).to(device)
+    train_pos, test_pos = center(train_data.positions), center(test_data.positions)
+    n_train, n_nodes, dim = train_pos.shape
+
+    ocfg = tcfg.optimizer
+    optimizer = build_optimizer(
+        init_lr=ocfg.init_lr,
+        use_schedule=ocfg.use_schedule,
+        peak_lr=ocfg.peak_lr,
+        end_lr=ocfg.end_lr,
+        n_iter_warmup=ocfg.n_iter_warmup,
+        n_iter_total=tcfg.n_training_iter * max(n_train // batch_size, 1),
+        optimizer_name=ocfg.optimizer,
+    )
+
+    flat = lambda a: a.reshape(a.shape[0], -1).to(device)
+    train_pos_flat, test_pos_flat = flat(train_pos), flat(test_pos)
+    train_features_flat = flat(train_data.features).long()
+    test_features_flat = flat(test_data.features).long()
+
+    net_cfg = cfg.flow.network
+    cnf = build_cnf(
+        n_frames=n_nodes, dim=dim, sigma_min=cfg.flow.sigma_min, base_scale=cfg.flow.base_scale,
+        n_blocks_egnn=net_cfg.n_blocks_egnn, mlp_units=net_cfg.mlp_units,
+        n_invariant_feat_hidden=net_cfg.n_invariant_feat_hidden,
+        time_embedding_dim=net_cfg.time_embedding_dim,
+        n_features=int(train_features_flat.max()) + 1,
+        compute_dtype=net_cfg.compute_dtype, device=device,
+    )
+    solve_cfg = SolveConfig(
+        use_fixed_step_size=tcfg.use_fixed_step_size,
+        hutchinson_probes=tcfg.hutchinson_probes,
+        method=tcfg.ode_method,
+    )
+    update_fn = make_update_fn(
+        cnf, optimizer, use_ema=tcfg.use_ema, ema_beta=tcfg.ema_beta, microbatch=tcfg.microbatch
+    )
+
+    def init_state(generator: torch.Generator) -> TrainingState:
+        """Parameters drawn on the CPU from ``generator`` (flax's initial
+        distributions), then the seed of the state's own generator on
+        ``device``, which the train steps draw from."""
+        fresh = copy.deepcopy(cnf.field).cpu()
+        fresh.reset_parameters(generator)
+        cnf.field.load_state_dict(fresh.state_dict())
+        seed = int(torch.randint(0, 2**62, (), generator=generator))
+        state_generator = torch.Generator(device=device).manual_seed(seed)
+        return init_training_state(cnf, optimizer, state_generator, use_ema=tcfg.use_ema)
+
+    def run_epoch(state: TrainingState):
+        state, infos = epoch(state, update_fn, train_pos_flat, train_features_flat, batch_size)
+        return state, {k: v.cpu() for k, v in infos.items()}
+
+    if tcfg.eval_plots:
+        print("eval_plots: plots are not ported to ecnf_tpu_torch yet; evaluations run without them")
+
+    with_rv = target_log_prob_fn is not None and tcfg.eval_n_model_samples is not None
+
+    def eval_and_plot(
+        state: TrainingState, generator: torch.Generator, iteration_n: int, save: bool,
+        plots_dir: Optional[str],
+    ) -> dict:
+        """`evaluate` on the test set; the EMA parameters on the final
+        evaluation.  Draws (probes, base samples) come from ``generator``."""
+        use_ema = tcfg.use_ema and tcfg.n_training_iter - 1 == iteration_n
+        cnf.field.load_state_dict(state.ema_params if use_ema else state.params)
+        info = evaluate(
+            cnf, test_pos_flat, test_features_flat, train_features_flat[0], tcfg.eval_batch_size,
+            target_log_prob_fn, tcfg.eval_n_model_samples if with_rv else None,
+            tcfg.eval_exact_log_prob, solve_cfg, generator,
+        )
+        return {k: np.asarray(v) for k, v in info.items()}
+
+    return TrainConfig(
+        n_iteration=tcfg.n_training_iter,
+        logger=logger,
+        seed=tcfg.seed,
+        n_checkpoints=tcfg.n_checkpoints,
+        n_eval=tcfg.n_eval,
+        init_state=init_state,
+        update_state=run_epoch,
+        eval_and_plot_fn=eval_and_plot,
+        save=tcfg.save,
+        save_dir=save_path,
+        resume=tcfg.resume,
+        runtime_limit=tcfg.runtime_limit,
+    )

@@ -1,6 +1,7 @@
 """The port imports no JAX: every `ecnf_tpu_torch` module, and the
-``--help`` of the sampling and scoring entry points, load in a process
-where ``import jax`` fails."""
+``--help`` of the sampling, scoring and experiment entry points, load in
+a process where ``import jax`` fails, and so do ``yaml``, ``pandas``,
+``h5py``, ``matplotlib`` and ``tqdm``, which the card's machine lacks."""
 import pkgutil
 import subprocess
 import sys
@@ -12,15 +13,17 @@ REPO = Path(__file__).resolve().parent.parent
 
 _PROGRAM = """
 import importlib, pkgutil, runpy, sys
-sys.modules["jax"] = None
-sys.modules["yaml"] = None
+BLOCKED = ("jax", "yaml", "pandas", "h5py", "matplotlib", "tqdm")
+for blocked in BLOCKED:
+    sys.modules[blocked] = None
 import ecnf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(ecnf_tpu_torch.__path__, "ecnf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert not any(n == "jax" or n.startswith(("jax.", "ecnf_tpu.")) for n in sys.modules if sys.modules[n] is not None)
+loaded = [n for n in sys.modules if sys.modules[n] is not None]
+assert not any(n.split(".")[0] in BLOCKED or n.startswith("ecnf_tpu.") for n in loaded)
 print(len(names))
-for program in ("sample", "score"):
+for program in ("sample", "score", "examples.dw4", "examples.lj13"):
     sys.argv = [program, "--help"]
     try:
         runpy.run_module(f"ecnf_tpu_torch.{program}", run_name="__main__")
@@ -33,12 +36,19 @@ def test_port_imports_without_jax():
     names = {m.name for m in pkgutil.walk_packages(ecnf_tpu_torch.__path__, "ecnf_tpu_torch.")}
     kernel_modules = {f"ecnf_tpu_torch.ops.{m}" for m in ("cuda_build", "edge_tangent", "egcl", "fused_trace")}
     assert kernel_modules <= names
+    program_modules = {f"ecnf_tpu_torch.{m}" for m in (
+        "targets.diagnostics", "targets.mcmc", "targets.data", "training.yaml_subset",
+        "training.config", "training.loggers", "training.checkpoints", "training.loop",
+        "examples.common", "examples.dw4", "examples.lj13",
+    )}
+    assert program_modules <= names
     expected = len(names)
     proc = subprocess.run(
         [sys.executable, "-c", _PROGRAM], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
-    assert int(lines[0]) == expected >= 15
+    assert int(lines[0]) == expected >= 26
     assert proc.stdout.count("--params-npz") >= 2
     assert "--hutchinson-probes" in proc.stdout and "--data" in proc.stdout
+    assert proc.stdout.count("--local") >= 2 and proc.stdout.count("overrides") >= 2

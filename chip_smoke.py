@@ -80,7 +80,25 @@ Phases, one or more lines each:
    parameters bit for bit those of (b); (d) the edge kernel at DW4's shape
    (B=64, N=4, K=6, U=128) against its plain version in bf16 and f32, on
    random inputs and on the inputs captured from one field evaluation
-   inside (c)'s evaluation, and its share of (b)'s and (c)'s evaluations.
+   inside (c)'s evaluation, and its share of (b)'s and (c)'s evaluations;
+13. the QM9 and MoG programs: (a) ``ecnf_tpu_torch.examples.qm9.run`` at
+   `examples/configs/qm9.yaml`'s width (5 blocks of [256]*4, bf16, B=256,
+   EMA, microbatch 4, epochs_per_dispatch 64, which the port ignores,
+   Hutchinson evaluation at batch 256) on the port's synthetic stand-ins,
+   cut to a train set of 1024, a test set of 256 and 6 iterations with
+   evaluations and checkpoints at 2 and 5: finite losses and
+   test_log_lik, the checkpoints, 5 edge launches per field evaluation,
+   ms per train step by CUDA events per epoch, seconds per evaluation,
+   each solve's steps and attempts, peak memory, and after (c) the
+   device's kernel time a train step in a `torch.profiler` trace of
+   further epochs, against the step's time; (b) the edge kernel at
+   the QM9 Hutchinson shape (K=1, B=256, N=19, U=256, L=4, bf16) on one
+   field evaluation's inputs captured in (a), against its plain version,
+   timed against its bound, with the cost model's columns per block and
+   its share of (a)'s evaluations; (c) ``python -m
+   ecnf_tpu_torch.measure_sampling_time --batch-size 128 --reps 3`` on (a)'s
+   checkpoints, whose restored parameters must be (a)'s last; (d) the MoG
+   example at its default width, cut to 5 iterations, with finite metrics.
 
 Bounds: the larger of the bytes a kernel must move (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
@@ -199,6 +217,27 @@ DW4_JAX_HMC = "R-hat 1.001 / 1.018, ESS 11,460 / 3,008, mean energy -22.54, mean
 # The captured HMC step against the eager one, relative to max |x|.
 HMC_GRAPH_LIMIT = 1e-5
 HMC_GRAPH_STEPS = 20
+# QM9 program phase: `examples/configs/qm9.yaml` at its full width (5 EGNN
+# blocks of [256]*4, hidden 32, time embedding 8, bf16, batch 256, EMA,
+# microbatch 4, epochs_per_dispatch 64; evaluations on adaptive Dopri5 at
+# rtol = atol = 1e-5 with one Hutchinson probe per sample, batch 256)
+# through `ecnf_tpu_torch.examples.qm9.run` on the port's synthetic
+# stand-ins, cut to these overrides: 4 steps an epoch, one evaluation batch,
+# evaluations and checkpoints at iterations 2 and 5.
+QM9_CUTS = ("training.train_set_size=1024", "training.test_set_size=256",
+            "training.n_training_iter=6", "training.n_eval=2", "training.n_checkpoints=2")
+QM9_STEPS_PER_EPOCH = 1024 // 256
+QM9_BLOCKS = 5
+# Its edge chain on the Hutchinson route: one probe column per sample.
+QM9_HUTCH_EDGE = dict(K=1, B=256, N=19, U=256, L=4)
+# The edge launches (a)'s run keeps for (b): field evaluation 20 of the
+# evaluation at -1, its 5 blocks.
+QM9_CAPTURE_AT = QM9_BLOCKS * 20
+QM9_SAMPLING_BATCH = 128
+QM9_SAMPLING_ARGS = ["--batch-size", str(QM9_SAMPLING_BATCH), "--reps", "3", "--device", "cuda"]
+# MoG at its default width, cut to 5 iterations (780 steps) and one
+# evaluation (with the one at -1).
+MOG_ITERATIONS = 5
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 and TF32 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -1256,20 +1295,30 @@ def _clone_args(args) -> tuple:
     return tuple([t.clone() for t in a] if isinstance(a, (list, tuple)) else a.clone() for a in args)
 
 
-def _dw4_program(dw4, common, setup, sampling, et, overrides, data_dir, capture_at=None) -> dict:
-    """One run of the DW4 entry point's ``run`` with its epochs timed by
-    CUDA events, its evaluations by the host clock, every solve recorded
-    and the kernels' launches counted.  ``capture_at`` (a multiple of 3)
-    keeps the arguments of that edge launch of the run and the next two:
-    the three blocks of one field evaluation inside the loop."""
-    cfg = common.load_experiment_config(str(common.CONFIG_DIR / "dw4.yaml"), False, overrides)
-    epochs, evals, captured = [], [], []
+def _run_program(example, config_name, common, setup, sampling, et, overrides, blocks,
+                 capture_at=None, **run_kwargs) -> dict:
+    """One run of an experiment entry point's ``run`` (``example.run(cfg,
+    device="cuda", **run_kwargs)`` on ``config_name`` with ``overrides``)
+    with its epochs timed by CUDA events, its evaluations by the host
+    clock, every solve recorded, the kernels' launches counted and the
+    last epoch's arguments kept (``epoch_args``).  ``capture_at`` (a multiple of
+    ``blocks``) keeps the arguments of that edge launch of the run and of
+    the ``blocks - 1`` after it: the EGNN blocks of one field evaluation."""
+    cfg = common.load_experiment_config(str(common.CONFIG_DIR / config_name), False, overrides)
+    epochs, evals, captured, epoch_args = [], [], [], []
     orig_epoch = _timed(setup, "epoch", epochs, cuda_events=True)
+    timed_epoch = setup.epoch
+
+    def keeping(*args, **kwargs):
+        epoch_args[:] = [args]
+        return timed_epoch(*args, **kwargs)
+
+    setup.epoch = keeping
     orig_eval = _timed(setup, "evaluate", evals, cuda_events=False)
     orig_edge = et.edge_tangent
 
     def capturing(*args, **kwargs):
-        if capture_at is not None and capture_at <= capturing.launch_count < capture_at + 3:
+        if capture_at is not None and capture_at <= capturing.launch_count < capture_at + blocks:
             captured.append(_clone_args(args))
         return orig_edge(*args, **kwargs)
 
@@ -1283,15 +1332,17 @@ def _dw4_program(dw4, common, setup, sampling, et, overrides, data_dir, capture_
     t0 = time.perf_counter()
     try:
         with SolveRecorder(sampling) as rec:
-            logger, state = dw4.run(cfg, device="cuda", data_dir=data_dir)
+            logger, state = example.run(cfg, device="cuda", **run_kwargs)
     finally:
-        setup.epoch, setup.evaluate, et.edge_tangent = orig_epoch, orig_eval, orig_edge
+        setup.epoch, setup.evaluate = orig_epoch, orig_eval
+        et.edge_tangent = orig_edge
         orig_edge.launch_count += capturing.launch_count
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return dict(cfg=cfg, history=logger.history, state=state, launches=counts(), rows=rec.rows(),
                 epoch_ms=[a.elapsed_time(b) for a, b in epochs], eval_s=evals, wall=wall,
-                peak_gb=torch.cuda.max_memory_allocated() / 1e9, captured=captured)
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, captured=captured,
+                epoch_args=epoch_args[0] if epoch_args else None)
 
 
 def _check_program(name: str, run: dict, iterations: list, n_evals: int) -> None:
@@ -1371,7 +1422,8 @@ def phase_training_program(et, card: str) -> dict:
     # (b) the program, cut.
     cuts = list(DW4_CUTS) + [f"training.save_dir={save_dir}"]
     print(f"[dw4] (b) dw4.yaml cut by {' '.join(cuts)}", flush=True)
-    run_b = _dw4_program(dw4, common, setup, sampling, et, cuts, data_dir)
+    run_b = _run_program(dw4, "dw4.yaml", common, setup, sampling, et, cuts, blocks=3,
+                         data_dir=data_dir)
     _check_program("(b) run", run_b, [-1] + [0] * 15 + [1] * 15 + [1], n_evals=2)
     ckpts = save_dir / "model_checkpoints"
     names = sorted(p.name for p in ckpts.iterdir())
@@ -1383,8 +1435,8 @@ def phase_training_program(et, card: str) -> dict:
     check(same and saved.keys() == run_b["state"].params.keys(), "(c) saved parameters differ")
     cuts_c = [c for c in cuts if "n_training_iter" not in c] + [
         "training.n_training_iter=3", "training.resume=true"]
-    run_c = _dw4_program(dw4, common, setup, sampling, et, cuts_c, data_dir,
-                         capture_at=DW4_CAPTURE_AT)
+    run_c = _run_program(dw4, "dw4.yaml", common, setup, sampling, et, cuts_c, blocks=3,
+                         capture_at=DW4_CAPTURE_AT, data_dir=data_dir)
     _check_program("(c) resumed run", run_c, [2] * 15 + [2], n_evals=1)
     names = sorted(p.name for p in ckpts.iterdir())
     check(names == ["state_00000000", "state_00000001", "state_00000002"], f"(c) checkpoints {names}")
@@ -1435,6 +1487,160 @@ def phase_training_program(et, card: str) -> dict:
     return dict(edge=timed, share=share)
 
 
+def phase_qm9_program(et, card: str) -> dict:
+    """The QM9 and MoG programs: (a) ``examples.qm9.run`` at qm9.yaml's
+    width, with its Hutchinson evaluations; (b) the
+    edge kernel on one field evaluation's inputs captured there; (c)
+    ``measure_sampling_time`` on (a)'s checkpoints; (d) MoG."""
+    from ecnf_tpu_torch import measure_sampling_time
+    from ecnf_tpu_torch.cnf import sampling
+    from ecnf_tpu_torch.examples import common, mog, qm9
+    from ecnf_tpu_torch.targets import synthetic_qm9
+    from ecnf_tpu_torch.training import setup
+    from ecnf_tpu_torch.training.loop import run_training
+
+    start = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "qm9"
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir, save_dir = root / "data", root / "run"
+    synthetic_qm9.write_synthetic_qm9(data_dir)
+
+    # (a) the program, cut.
+    cuts = list(QM9_CUTS) + [f"training.save_dir={save_dir}"]
+    print(f"[qm9] (a) qm9.yaml cut by {' '.join(cuts)}; data: the port's synthetic stand-ins "
+          f"(seed {synthetic_qm9.SEED}, marker present, allow_synthetic=True)", flush=True)
+    run = _run_program(qm9, "qm9.yaml", common, setup, sampling, et, cuts, blocks=QM9_BLOCKS,
+                       capture_at=QM9_CAPTURE_AT, data_dir=data_dir, allow_synthetic=True)
+    t, net = run["cfg"].training, run["cfg"].flow.network
+    check(t.epochs_per_dispatch == 64 and t.microbatch == 4 and t.use_ema and t.batch_size == 256
+          and t.eval_batch_size == 256 and not t.eval_exact_log_prob and t.hutchinson_probes == 1
+          and net.compute_dtype == "bfloat16" and list(net.mlp_units) == [256] * 4
+          and net.n_blocks_egnn == QM9_BLOCKS, f"qm9.yaml read as {t} {net}")
+    h = run["history"]
+    losses = h.get("loss", [])
+    steps = QM9_STEPS_PER_EPOCH
+    iterations = [-1] + [i for i in range(3) for _ in range(steps)] + [2] + [
+        i for i in range(3, 6) for _ in range(steps)] + [5]
+    check(h["iteration"] == [float(i) for i in iterations], f"(a) iterations {h['iteration']}")
+    check(len(losses) == 6 * steps and all(math.isfinite(v) for v in losses), f"(a) losses {losses}")
+    check(len(run["epoch_ms"]) == 6, f"(a) {len(run['epoch_ms'])} epochs")
+    lls = h.get("test_log_lik", [])
+    check(len(lls) == 3 and all(math.isfinite(v) for v in lls), f"(a) test_log_lik {lls}")
+    check(all(v > 0 for v in h["eval_ode_steps"]), f"(a) eval_ode_steps {h['eval_ode_steps']}")
+    names = sorted(p.name for p in (save_dir / "model_checkpoints").iterdir())
+    check(names == ["state_00000002", "state_00000005"], f"(a) checkpoints {names}")
+    rows, launched = run["rows"], run["launches"]
+    evals = sum(r["evals"] for r in rows)
+    check(launched["edge_tangent"] == QM9_BLOCKS * sum(2 + 6 * r["attempts"] for r in rows)
+          and launched["egcl"] == launched["fused_trace"] == 0,
+          f"(a) launches {launched} for {evals} field evaluations")
+    check(not any(r["nan_rows"] for r in rows), "(a) non-finite rows in an evaluation")
+    step_ms = [ms / steps for ms in run["epoch_ms"]]
+    print(f"[qm9] (a) iterations logged {sorted(set(h['iteration']))}; {len(losses)} losses "
+          f"{losses[0]:.4f} .. {losses[-1]:.4f}; epochs of {steps} steps by CUDA events "
+          + ", ".join(f"{ms:.1f} ms ({v:.2f} ms/step)" for ms, v in zip(run["epoch_ms"], step_ms))
+          + "; evaluations (Hutchinson, 1 probe, batch 256): "
+          + "; ".join(f"test_log_lik {a:.4f} eval_ode_steps {b:.2f}"
+                      for a, b in zip(lls, h["eval_ode_steps"]))
+          + f"; seconds per evaluation {', '.join(f'{s:.2f}' for s in run['eval_s'])}; solves: "
+          + ", ".join(f"{r['steps']} steps / {r['attempts']} attempts ({r['ms']:.1f} ms)"
+                      for r in rows)
+          + f"; {evals} field evaluations, {launched['edge_tangent']} edge launches "
+          f"({launched['edge_tangent'] / evals:g} per evaluation); peak device memory "
+          f"{run['peak_gb']:.2f} GB; {run['wall']:.1f} s wall", flush=True)
+
+    # (b) the edge kernel at the QM9 Hutchinson shape on the captured inputs.
+    check(len(run["captured"]) == QM9_BLOCKS, f"(b) captured {len(run['captured'])} launches")
+    K, B, N, U, L = (QM9_HUTCH_EDGE[k] for k in ("K", "B", "N", "U", "L"))
+    for i, a in enumerate(run["captured"]):
+        check(tuple(a[0].shape) == (K, B, N, U) and a[0].dtype == torch.bfloat16,
+              f"(b) block {i} a_t {tuple(a[0].shape)} {a[0].dtype}")
+        abs_err, rel = edge_errors(et.edge_tangent(*a), et.edge_tangent_reference(*a))
+        print(f"[qm9] (b) edge_tangent {QM9_HUTCH_EDGE} bfloat16, block {i} of field evaluation "
+              f"{QM9_CAPTURE_AT // QM9_BLOCKS} of the evaluation at -1: max_abs_err={abs_err:.3e} "
+              f"rel={rel:.3e} (limit {EDGE_LIMITS[torch.bfloat16]:.0e})", flush=True)
+        check(math.isfinite(rel) and rel <= EDGE_LIMITS[torch.bfloat16],
+              f"QM9 Hutchinson edge_tangent block {i}: rel error {rel:.3e}")
+    a = run["captured"][0]
+    out = et.edge_tangent(*a)
+    abs_err, _ = edge_errors(out, et.edge_tangent_reference(*a))
+    ms = cuda_ms(lambda: et.edge_tangent(*a), 20)
+    plain_ms = cuda_ms(lambda: et.edge_tangent_reference(*a), 20)
+    b = bound(edge_flop(B * N * N, K, L, U), nbytes(a, out), BF16_FLOPS)
+    cols = et.default_columns(0, torch.bfloat16, K, B, N, U, L)
+    plan = et.launch_plan(0, torch.bfloat16, K, B, N, U, L, cols)
+    solve_ms = sum(r["ms"] for r in rows)
+    share = launched["edge_tangent"] * ms / solve_ms
+    print(f"[qm9] (b) edge_tangent at the QM9 Hutchinson shape (bf16, block 0): kernel "
+          f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, {rate_line(b, ms)} (its "
+          f"operations alone {b['flop'] / BF16_FLOPS * 1e6:.1f} us); cost model: "
+          f"{cols} columns per thread block, {plan['smem_bytes']} B of shared memory, "
+          f"{plan['blocks_per_sm']} blocks per SM, {plan['row_tiles']} row tiles per warp; "
+          f"{launched['edge_tangent']} launches x {ms:.4f} ms = {100 * share:.1f}% of "
+          f"{solve_ms:.1f} ms of (a)'s evaluation solves (CUDA events)", flush=True)
+
+    # (c) measure_sampling_time on (a)'s checkpoints.
+    zero_counts()
+    sampled = measure_sampling_time.main(
+        ["--checkpoint-dir", str(save_dir / "model_checkpoints"), *QM9_SAMPLING_ARGS])
+    same = sampled["params"].keys() == run["state"].params.keys() and all(
+        torch.equal(sampled["params"][k].cpu(), v.cpu()) for k, v in run["state"].params.items())
+    check(str(sampled["checkpoint"]).endswith("state_00000005") and same,
+          f"(c) restored {sampled['checkpoint']}: parameters equal the run's last: {same}")
+    check(bool(torch.isfinite(sampled["samples"]).all())
+          and tuple(sampled["samples"].shape) == (QM9_SAMPLING_BATCH, 57), "(c) samples")
+    check(not any(counts().values()), f"(c) the sample-only solve launched {counts()}")
+    print(f"[qm9] (c) measure_sampling_time {' '.join(QM9_SAMPLING_ARGS)}: restored "
+          f"{Path(sampled['checkpoint']).name}, parameters equal the run's last bit for bit: "
+          f"{same}; first call {sampled['first_s']:.3f} s, best of 3 "
+          f"{1e3 * min(sampled['rep_s']):.1f} ms ({', '.join(f'{1e3 * v:.1f}' for v in sampled['rep_s'])} "
+          f"ms; CUDA events) for {QM9_SAMPLING_BATCH} samples (f32, adaptive Dopri5)", flush=True)
+
+    # (a) continued, after (c) read the checkpoints: where a train step's
+    # time goes, from further epochs of the run's own update on its state.
+    _, update, pos, feats, batch_size = run["epoch_args"]
+    box = {"st": run["state"]}
+
+    def one_epoch():
+        box["st"], _ = setup.epoch(box["st"], update, pos, feats, batch_size)
+
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(PROFILE_STEPS)]
+    for ev_start, ev_end in events:
+        ev_start.record()
+        one_epoch()
+        ev_end.record()
+    torch.cuda.synchronize()
+    again_ms = statistics.median(a.elapsed_time(b) for a, b in events) / steps
+    kernel_ms, n_kernels = _profile_step(one_epoch)
+    print(f"[qm9] (a) {PROFILE_STEPS} more epochs of the run's update: median {again_ms:.2f} ms a "
+          f"train step (CUDA events); profiler over {PROFILE_STEPS} more: {n_kernels / steps:.0f} "
+          f"device kernels and {kernel_ms / steps:.3f} ms of device kernel time a step, busy "
+          f"share {kernel_ms / steps / again_ms:.3f}", flush=True)
+    del box
+
+    # (d) MoG at its default width.
+    zero_counts()
+    t0 = time.perf_counter()
+    logger, state = run_training(mog.setup_mog_training(n_iteration=MOG_ITERATIONS, n_eval=1,
+                                                        device="cuda"))
+    torch.cuda.synchronize()
+    mog_s = time.perf_counter() - t0
+    h = logger.history
+    metrics = ("test_log_lik", "test_kl", "test_approx_log_lik")
+    check(all(len(h.get(m, [])) == 2 and all(math.isfinite(v) for v in h[m]) for m in metrics),
+          f"(d) MoG metrics { {m: h.get(m) for m in metrics} }")
+    check(len(h["loss"]) == MOG_ITERATIONS * (10000 // 64) and all(map(math.isfinite, h["loss"])),
+          "(d) MoG losses")
+    check(not any(counts().values()), f"(d) MoG launched {counts()}")
+    print(f"[mog] (d) MoG, VectorNet (512, 512, 512), {MOG_ITERATIONS} iterations of 156 steps "
+          f"and evaluations at -1 and {MOG_ITERATIONS - 1} on 256 test points: "
+          + "; ".join(f"{m} {h[m][0]:.4f} -> {h[m][1]:.4f}" for m in metrics)
+          + f"; loss {h['loss'][0]:.4f} .. {h['loss'][-1]:.4f}; {mog_s:.1f} s wall; phase "
+          f"{time.perf_counter() - start:.1f} s; on {card}", flush=True)
+    return dict(edge=dict(ms=ms, plain_ms=plain_ms, abs_err=abs_err, **b), share=share)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
@@ -1473,6 +1679,7 @@ def main() -> None:
     phase_train(card)
     phase_evaluation(sampling, score, setup, energies, et, fused_trace, card)
     phase_training_program(et, card)
+    phase_qm9_program(et, card)
 
     # Per kernel, its main-path shapes: the LJ13 structured solve's bf16
     # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches)

@@ -1,4 +1,6 @@
-"""CNF factory: zero-CoM Gaussian base + EGNN vector field (port of `ecnf_tpu/cnf/build.py`)."""
+"""CNF factories (port of `ecnf_tpu/cnf/build.py`): zero-CoM Gaussian base +
+EGNN vector field (`build_cnf`), and diagonal Gaussian base + plain MLP
+field (`build_mlp_cnf`, the 2-D MoG)."""
 import math
 from functools import partial
 from typing import Optional, Sequence
@@ -6,10 +8,11 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ecnf_tpu_torch.cnf.base import ZeroCoMGaussian
+from ecnf_tpu_torch.cnf.base import DiagGaussian, ZeroCoMGaussian
 from ecnf_tpu_torch.cnf.core import FlowMatchingCNF, optimal_transport_conditional_vf
 from ecnf_tpu_torch.models.egnn import EGNN
 from ecnf_tpu_torch.models.mlp import ConcatDense
+from ecnf_tpu_torch.models.vector_net import VectorNet
 from ecnf_tpu_torch.ops.divergence import zero_com_trace_basis
 from ecnf_tpu_torch.ops.egcl import egnn_weights
 from ecnf_tpu_torch.ops.fused_trace import egnn_value_and_div_fused
@@ -157,4 +160,33 @@ def build_cnf(
         trace_weights=partial(trace_weights, net),
         fused_value_and_div=fused,
         fused_weights=fused_weights,
+    )
+
+
+def build_mlp_cnf(
+    dim: int,
+    sigma_min: float,
+    base_scale: float,
+    features: Sequence[int] = (512, 512, 512),
+    embedding_dim: int = 32,
+    device=None,
+    generator: Optional[torch.Generator] = None,
+) -> FlowMatchingCNF:
+    """A plain-MLP CNF (`VectorNet`) on a diagonal Gaussian base, with its
+    field initialised on the CPU from ``generator`` and moved to ``device``
+    (the card unless the caller names another).  Its trace is the
+    ``torch.func`` route: no structured tangent, no kernel."""
+    device = resolve_device(device)
+    base = DiagGaussian(dim=dim, scale=base_scale)
+    net = VectorNet(dim, features=tuple(features), embedding_dim=embedding_dim)
+    net.reset_parameters(generator)
+    net = net.to(device).eval()
+    return FlowMatchingCNF(
+        field=net,
+        sample_base=partial(base.sample, device=device),
+        get_x_t_and_conditional_u_t=partial(
+            optimal_transport_conditional_vf, sigma_min=sigma_min
+        ),
+        log_prob_base=base.log_prob,
+        sample_and_log_prob_base=partial(base.sample_and_log_prob, device=device),
     )

@@ -3,9 +3,11 @@
 `from_flax` turns a flax parameter tree of `ecnf_tpu.cnf.build.build_cnf`'s
 field (a nested dict of arrays, with or without the top ``"params"`` key,
 or a flat mapping of ``"/"``-joined paths as saved with ``numpy.savez``)
-into a ``state_dict`` of `ecnf_tpu_torch.cnf.build.FlatEGNNField`;
-`to_flax` is the inverse.  This is the only place where layouts change:
-flax Dense kernels are ``[in, out]``, torch weights ``[out, in]``.
+into a ``state_dict`` of `ecnf_tpu_torch.cnf.build.FlatEGNNField`, and
+one of `ecnf_tpu.models.vector_net.VectorNet` (the MoG field) into one of
+`ecnf_tpu_torch.models.vector_net.VectorNet`; `to_flax` is the inverse.
+This is the only place where layouts change: flax Dense kernels are ``[in,
+out]``, torch weights ``[out, in]``.
 """
 import re
 from typing import Dict, Mapping, Union
@@ -35,6 +37,12 @@ def _torch_name(path: str) -> str:
     m = re.fullmatch(r"EGNN_0/EGCL_(\d+)/(Dense_[01])/(kernel|bias)", path)
     if m:
         return f"egnn.blocks.{m[1]}.{_DENSES[m[2]]}.{_LEAVES[m[3]]}"
+    m = re.fullmatch(r"ConcatDense_(\d+)/(kernel|bias)", path)  # VectorNet
+    if m:
+        return f"layers.{m[1]}.{_LEAVES[m[2]]}"
+    m = re.fullmatch(r"Dense_0/(kernel|bias)", path)
+    if m:
+        return f"out.{_LEAVES[m[1]]}"
     raise KeyError(f"unknown flax parameter {path!r}")
 
 
@@ -58,6 +66,12 @@ def _flax_path(name: str) -> str:
     if m:
         dense = {v: k for k, v in _DENSES.items()}[m[2]]
         return f"EGNN_0/EGCL_{m[1]}/{dense}/{leaves[m[3]]}"
+    m = re.fullmatch(r"layers\.(\d+)\.(weight|bias)", name)  # VectorNet
+    if m:
+        return f"ConcatDense_{m[1]}/{leaves[m[2]]}"
+    m = re.fullmatch(r"out\.(weight|bias)", name)
+    if m:
+        return f"Dense_0/{leaves[m[1]]}"
     raise KeyError(f"unknown port parameter {name!r}")
 
 
@@ -75,7 +89,8 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax parameters of the EGNN field -> the port's ``state_dict``."""
+    """Flax parameters of the EGNN field or of VectorNet -> the port's
+    ``state_dict``."""
     state = {}
     for path, value in flatten(params).items():
         path = path[len("params/"):] if path.startswith("params/") else path

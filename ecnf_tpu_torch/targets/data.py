@@ -1,4 +1,4 @@
-"""DW4 and LJ13 datasets (port of the DW4 and LJ13 half of
+"""DW4, LJ13 and QM9 datasets (port of the DW4, LJ13 and QM9 loaders of
 `ecnf_tpu/targets/data.py`).
 
 The original blobs of the reference (``dw4-dataidx.npy``; ``holdout_data_LJ13.npy``,
@@ -7,8 +7,11 @@ splits, when they are in the data directory.  Otherwise a dataset is
 regenerated by HMC on the same target energy, gated on its chains' mixing,
 and cached as ``dw4_generated_torch.npy`` / ``lj13_generated_torch.npy``.
 The JAX package's own regenerations (``*_generated.npy``) come from
-another random stream and are never read here, nor written.
+another random stream and are never read here, nor written.  QM9 reads
+the ``qm9pos_*.npy`` files that `targets/qm9.py` writes (and downloads
+GDB9 for, when they are missing) or seeded stand-ins behind a marker.
 """
+import os
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple, Union
@@ -191,3 +194,47 @@ def load_lj13(
         train_data = data[2000 : 2000 + train_set_size]
     to3 = lambda a: np.asarray(a, dtype=np.float32).reshape(-1, 13, 3)
     return _to_graphs(device, to3(train_data), to3(val_data), to3(test_data))
+
+
+SYNTHETIC_QM9_MARKER = "QM9_SYNTHETIC_NOTE.txt"
+_TRUTHY = ("1", "true", "yes")
+
+
+def load_qm9(
+    train_set_size: Optional[int] = None,
+    path: Optional[PathLike] = None,
+    allow_synthetic: bool = False,
+    device=None,
+) -> Tuple[FullGraphSample, FullGraphSample, FullGraphSample]:
+    """QM9 positions of the 19-atom molecules: ``qm9pos_{train,valid,test}.npy``
+    of the data directory (train cut to ``train_set_size``), on ``device``
+    (the card unless another is named).  Missing files are made by
+    `targets/qm9.py: qm9pos_download_and_save_data`, which downloads GDB9.
+
+    A directory holding `SYNTHETIC_QM9_MARKER` holds seeded stand-ins
+    (`targets/synthetic_qm9.py`), not QM9: it is refused, before any
+    download, unless ``allow_synthetic`` or ``ECNF_ALLOW_SYNTHETIC_QM9`` is
+    one of 1 / true / yes (any case).
+    """
+    device = resolve_device(device)
+    d = _data_dir(path)
+    fpath_train, fpath_val, fpath_test = (d / f"qm9pos_{s}.npy" for s in ("train", "valid", "test"))
+    opted_in = allow_synthetic or os.environ.get("ECNF_ALLOW_SYNTHETIC_QM9", "").lower() in _TRUTHY
+    if (d / SYNTHETIC_QM9_MARKER).exists() and not opted_in:
+        raise RuntimeError(
+            f"{d} is marked as holding SYNTHETIC QM9 stand-in data (marker: "
+            f"{d / SYNTHETIC_QM9_MARKER}), not real QM9: training on it yields meaningless "
+            "quality numbers. For hardware-validation runs opt in explicitly with "
+            "load_qm9(..., allow_synthetic=True) or ECNF_ALLOW_SYNTHETIC_QM9=1. For real QM9, "
+            "delete BOTH the marker file and the qm9pos_*.npy stand-ins, then re-run with "
+            "network access so qm9pos_download_and_save_data can fetch GDB9."
+        )
+    if not fpath_train.exists():
+        from ecnf_tpu_torch.targets.qm9 import qm9pos_download_and_save_data
+
+        qm9pos_download_and_save_data(base_path=str(d))
+    train_data = np.load(fpath_train)
+    if train_set_size is not None:
+        assert train_set_size <= len(train_data)
+    train_data = train_data[:train_set_size]
+    return _to_graphs(device, train_data, np.load(fpath_val), np.load(fpath_test))

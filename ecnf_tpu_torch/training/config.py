@@ -71,9 +71,9 @@ class TrainingConfig:
     use_64_bit: bool = False
     # Fields of the JAX package's schema beyond the reference's.  The port
     # acts on hutchinson_probes, ode_method and microbatch; it refuses a
-    # non-default precision, trace_column_chunk, epochs_per_dispatch or
-    # profile_dir, and ignores compile_cache and eval_dispatch_chunk, which
-    # tune XLA compilation and dispatch only (`setup_training`).
+    # non-default precision, trace_column_chunk or profile_dir, and ignores
+    # compile_cache, epochs_per_dispatch and eval_dispatch_chunk, which tune
+    # XLA compilation and dispatch only (`setup_training`).
     precision: str = "float32"
     trace_column_chunk: Optional[int] = None
     # Hutchinson probes per sample when eval_exact_log_prob=false.

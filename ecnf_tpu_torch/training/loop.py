@@ -10,8 +10,9 @@ limit.  One generator, seeded from ``seed``, feeds ``init_state`` and then
 each evaluation in turn (the JAX key is split in the same order).  At the
 end it prints the seconds the epochs and the evaluations took (host clock;
 each returns values on the host, which waits for the device).  The
-JAX options that group epochs into one dispatch, trace with a profiler or
-switch to 64-bit are not ported.
+JAX options that trace with a profiler or switch to 64-bit are not
+ported; the one that groups epochs into one dispatch has nothing to group
+in eager PyTorch (`setup_training` ignores it).
 """
 import os
 import pathlib

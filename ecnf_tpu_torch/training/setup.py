@@ -39,12 +39,13 @@ def epoch(
     state: TrainingState,
     update: Callable[..., Tuple[TrainingState, Dict[str, Tensor]]],
     pos: Tensor,
-    feats: Tensor,
+    feats: Optional[Tensor],
     batch_size: int,
     perm: Optional[Tensor] = None,
 ) -> Tuple[TrainingState, Dict[str, Tensor]]:
-    """One pass over ``pos [n, D]`` / ``feats [n, N]``: permute, drop the
-    remainder, and run ``update`` on each minibatch in turn.
+    """One pass over ``pos [n, D]`` / ``feats [n, N]`` (or None, for a field
+    without node features): permute, drop the remainder, and run ``update``
+    on each minibatch in turn.
 
     The permutation is drawn from the state's generator unless ``perm``
     (a permutation of ``n``) is given.  Returns the state and each info
@@ -58,12 +59,30 @@ def epoch(
         perm = torch.randperm(n, generator=state.generator, device=state.generator.device)
     perm = perm.to(pos.device)[: n_batches * batch_size]
     pos_b = pos[perm].reshape(n_batches, batch_size, -1)
-    feat_b = feats[perm].reshape(n_batches, batch_size, -1)
+    feat_b = [None] * n_batches if feats is None else feats[perm].reshape(n_batches, batch_size, -1)
     infos = []
     for xb, fb in zip(pos_b, feat_b):
         state, info = update(state, xb, fb)
         infos.append(info)
     return state, {key: torch.stack([info[key] for info in infos]) for key in infos[0]}
+
+
+def init_state_from(
+    cnf: FlowMatchingCNF,
+    optimizer,
+    generator: torch.Generator,
+    device,
+    use_ema: bool = False,
+) -> TrainingState:
+    """A fresh training state: the field's parameters drawn on the CPU from
+    ``generator`` (flax's initial distributions), then the seed of the
+    state's own generator on ``device``, which the train steps draw from."""
+    fresh = copy.deepcopy(cnf.field).cpu()
+    fresh.reset_parameters(generator)
+    cnf.field.load_state_dict(fresh.state_dict())
+    seed = int(torch.randint(0, 2**62, (), generator=generator))
+    state_generator = torch.Generator(device=device).manual_seed(seed)
+    return init_training_state(cnf, optimizer, state_generator, use_ema=use_ema)
 
 
 TargetLogProb = Callable[[Tensor], Tensor]  # [B, N, D] -> [B]
@@ -207,7 +226,6 @@ def evaluate(
 _UNPORTED = {
     ("training", "use_64_bit"): False,
     ("training", "profile_dir"): None,
-    ("training", "epochs_per_dispatch"): 1,
     ("training", "precision"): "float32",
     ("training", "trace_column_chunk"): None,
     ("network", "stable_mlp"): False,
@@ -242,8 +260,9 @@ def setup_training(
     ``eval_n_model_samples`` is set and there is a target), on the EMA
     parameters at the final iteration.
 
-    ``compile_cache`` and ``eval_dispatch_chunk`` tune XLA compilation and
-    dispatch and are ignored; the fields of `_UNPORTED` are refused unless
+    ``compile_cache``, ``epochs_per_dispatch`` and ``eval_dispatch_chunk``
+    tune XLA compilation and dispatch and are ignored (an eager epoch has
+    no dispatch to group); the fields of `_UNPORTED` are refused unless
     at their defaults; with ``eval_plots`` (the default) a line says that
     plots are not ported yet, and no plotting solve runs.
     """
@@ -309,15 +328,7 @@ def setup_training(
     )
 
     def init_state(generator: torch.Generator) -> TrainingState:
-        """Parameters drawn on the CPU from ``generator`` (flax's initial
-        distributions), then the seed of the state's own generator on
-        ``device``, which the train steps draw from."""
-        fresh = copy.deepcopy(cnf.field).cpu()
-        fresh.reset_parameters(generator)
-        cnf.field.load_state_dict(fresh.state_dict())
-        seed = int(torch.randint(0, 2**62, (), generator=generator))
-        state_generator = torch.Generator(device=device).manual_seed(seed)
-        return init_training_state(cnf, optimizer, state_generator, use_ema=tcfg.use_ema)
+        return init_state_from(cnf, optimizer, generator, device, tcfg.use_ema)
 
     def run_epoch(state: TrainingState):
         state, infos = epoch(state, update_fn, train_pos_flat, train_features_flat, batch_size)

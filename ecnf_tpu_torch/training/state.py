@@ -39,7 +39,7 @@ def init_training_state(
 ) -> TrainingState:
     """State from the field's current parameters; the EMA starts as a copy
     of them, not an alias."""
-    device = cnf.field.egnn.final_scaling.device
+    device = next(cnf.field.parameters()).device
     if generator.device.type != device.type:
         raise ValueError(f"the generator is on {generator.device}, the field on {device}")
     params = {name: p.detach().clone() for name, p in cnf.field.named_parameters()}

@@ -1,6 +1,6 @@
 """The port imports no JAX: every `ecnf_tpu_torch` module, and the
-``--help`` of the sampling, scoring and experiment entry points, load in
-a process where ``import jax`` fails, and so do ``yaml``, ``pandas``,
+``--help`` of the sampling, scoring, timing, experiment and
+synthetic-QM9 entry points, load in a process where ``import jax`` fails, and so do ``yaml``, ``pandas``,
 ``h5py``, ``matplotlib`` and ``tqdm``, which the card's machine lacks."""
 import pkgutil
 import subprocess
@@ -23,7 +23,8 @@ for name in names:
 loaded = [n for n in sys.modules if sys.modules[n] is not None]
 assert not any(n.split(".")[0] in BLOCKED or n.startswith("ecnf_tpu.") for n in loaded)
 print(len(names))
-for program in ("sample", "score", "examples.dw4", "examples.lj13"):
+for program in ("sample", "score", "examples.dw4", "examples.lj13", "examples.qm9",
+                "examples.mog", "measure_sampling_time", "targets.synthetic_qm9"):
     sys.argv = [program, "--help"]
     try:
         runpy.run_module(f"ecnf_tpu_torch.{program}", run_name="__main__")
@@ -39,7 +40,9 @@ def test_port_imports_without_jax():
     program_modules = {f"ecnf_tpu_torch.{m}" for m in (
         "targets.diagnostics", "targets.mcmc", "targets.data", "training.yaml_subset",
         "training.config", "training.loggers", "training.checkpoints", "training.loop",
-        "examples.common", "examples.dw4", "examples.lj13",
+        "examples.common", "examples.dw4", "examples.lj13", "examples.qm9", "examples.mog",
+        "measure_sampling_time", "targets.qm9", "targets.synthetic_qm9", "targets.mog",
+        "models.vector_net",
     )}
     assert program_modules <= names
     expected = len(names)
@@ -48,7 +51,8 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
-    assert int(lines[0]) == expected >= 26
+    assert int(lines[0]) == expected >= 33
     assert proc.stdout.count("--params-npz") >= 2
     assert "--hutchinson-probes" in proc.stdout and "--data" in proc.stdout
-    assert proc.stdout.count("--local") >= 2 and proc.stdout.count("overrides") >= 2
+    assert proc.stdout.count("--local") >= 3 and proc.stdout.count("overrides") >= 4
+    assert "--checkpoint-dir" in proc.stdout and "--wandb-project" in proc.stdout

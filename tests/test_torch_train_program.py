@@ -158,7 +158,7 @@ def test_entry_point_trains_checkpoints_resumes_and_scores(data_dir, tmp_path):
 
 def test_setup_refuses_unported_options(tmp_path):
     for override in ("training.use_64_bit=true", "training.profile_dir=p",
-                     "training.epochs_per_dispatch=4", "training.precision=bfloat16",
+                     "training.precision=bfloat16",
                      "training.trace_column_chunk=8", "flow.network.stable_mlp=true"):
         cfg = config.load_config(str(common.CONFIG_DIR / "dw4.yaml"),
                                  [override, f"training.save_dir={tmp_path}"])

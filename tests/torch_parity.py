@@ -83,13 +83,14 @@ def _flax_tree(blocks, units, n, dim):
     return jax.tree_util.tree_map(np.asarray, jax.device_get(params))
 
 
-def slow_time(tree):
+def slow_time(tree, h=H, t=T):
     """Zero the time-ConcatDense rows that read ``sin/cos(1000 t)``: rows
-    ``H`` and ``H + T/2`` of each ``EGNN_0/ConcatDense_i`` kernel."""
+    ``h`` and ``h + t/2`` of each ``EGNN_0/ConcatDense_i`` kernel (``h``
+    hidden invariant features, a time embedding of ``t``)."""
     egnn = tree["params"]["EGNN_0"]
     for name, layer in egnn.items():
         if name.startswith("ConcatDense_"):
-            layer["kernel"][[H, H + T // 2]] = 0.0
+            layer["kernel"][[h, h + t // 2]] = 0.0
     return tree
 
 

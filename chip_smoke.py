@@ -98,7 +98,26 @@ Phases, one or more lines each:
    its share of (a)'s evaluations; (c) ``python -m
    ecnf_tpu_torch.measure_sampling_time --batch-size 128 --reps 3`` on (a)'s
    checkpoints, whose restored parameters must be (a)'s last; (d) the MoG
-   example at its default width, cut to 5 iterations, with finite metrics.
+   example at its default width, cut to 5 iterations, with finite metrics
+   and its two figures of each evaluation written as SVG and parsed;
+14. the ALDP program: (a) ``targets.h5.read_dataset`` on
+   ``data/aldp_500K_train_mini.h5`` (the card has no h5py): shape (2000,
+   22, 3), finite, and its float64 sum and sum of squares equal to the
+   constants the CPU test pins against h5py; (b)
+   ``ecnf_tpu_torch.examples.aldp.run`` at `examples/configs/aldp_soak.yaml`'s
+   width (3 blocks of [64, 64], hidden 32, bf16, B=256, EMA,
+   warmup-cosine; 1,600 training and 400 disjoint test frames), cut to 2
+   iterations with evaluations at -1 and 1: finite losses and
+   test_log_lik, the checkpoint, 3 edge launches per field evaluation, ms
+   per train step by CUDA events, seconds per evaluation and per plotting
+   solve, each solve's steps and attempts, the distance-histogram figures
+   written as SVG and parsed; (c) the edge kernel at the ALDP Hutchinson
+   shape (K=1, B=256, N=22, U=64, L=2, bf16) on one field evaluation's
+   inputs captured in (b), against its plain version at phase 3's limit,
+   timed against its bound, with its share of (b)'s evaluations; (d) the
+   ``--local`` ALDP and DW4 programs on the card (evaluations at -1 and
+   9), whose edge widths of 4 and 16 the kernel takes zero-padded, each
+   padded launch of one field evaluation held to the plain version.
 
 Bounds: the larger of the bytes a kernel must move (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
@@ -238,6 +257,29 @@ QM9_SAMPLING_ARGS = ["--batch-size", str(QM9_SAMPLING_BATCH), "--reps", "3", "--
 # MoG at its default width, cut to 5 iterations (780 steps) and one
 # evaluation (with the one at -1).
 MOG_ITERATIONS = 5
+# ALDP phase.  (a) the exactly rounded float64 sum and sum of squares of
+# `data/aldp_500K_train_mini.h5`'s coordinates, which the CPU test
+# (`tests/test_torch_h5.py`) pins against h5py.
+ALDP_H5 = "data/aldp_500K_train_mini.h5"
+ALDP_H5_SUMS = (39807.7559506665, 22215.903674675665)
+# (b) `examples/configs/aldp_soak.yaml` at its full width (3 EGNN blocks of
+# [64, 64], hidden 32, time embedding 8, bf16, batch 256, EMA, warmup-cosine;
+# 1,600 training frames and the disjoint last 400 for the test; Hutchinson
+# evaluation with one probe, batch 256) through
+# `ecnf_tpu_torch.examples.aldp.run`, cut to these overrides: 6 steps an
+# epoch, evaluations at -1 and 1, each with its figure, the history kept in
+# memory (the config's CSV logger writes files).
+ALDP_CUTS = ("training.n_training_iter=2", "training.n_eval=1", "training.n_checkpoints=1",
+             "logger={list_logger: null}")
+ALDP_STEPS_PER_EPOCH = 1600 // 256
+ALDP_BLOCKS = 3
+# (c) its edge chain on the Hutchinson route, one probe column per sample;
+# the launches (b)'s run keeps: field evaluation 20 of the evaluation at -1.
+ALDP_HUTCH_EDGE = dict(K=1, B=256, N=22, U=64, L=2)
+ALDP_CAPTURE_AT = ALDP_BLOCKS * 20
+# (d) the `--local` programs (ALDP mlp_units [4], DW4 [16]: widths the
+# edge kernel takes zero-padded), cut to evaluations at -1 and 9.
+ALDP_LOCAL_CUTS = ("training.n_eval=1",)
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 and TF32 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -971,8 +1013,9 @@ def phase_train(card: str) -> dict:
 
 class SolveRecorder:
     """While active, records every ODE solve that `cnf.sampling` runs: its
-    `ODEStats`, its time by CUDA events and its output, whose non-finite
-    rows are the samples that diverged or ran out of steps."""
+    `ODEStats`, its time by CUDA events, its output, whose non-finite
+    rows are the samples that diverged or ran out of steps, and whether it
+    carried the trace (a log-density solve) or only the samples."""
 
     def __init__(self, sampling):
         self.sampling = sampling
@@ -986,7 +1029,8 @@ class SolveRecorder:
             start.record()
             y, stats = solve(*args, **kwargs)
             end.record()
-            self.solves.append((stats, start, end, y))
+            traced = "_augmented_field" in getattr(args[0], "__qualname__", "")
+            self.solves.append((stats, start, end, y, traced))
             return y, stats
 
         self.sampling._solve = recorded
@@ -997,13 +1041,15 @@ class SolveRecorder:
 
     def rows(self) -> list:
         """Per solve: steps, attempts, field evaluations, host syncs, host
-        seconds waiting in them, device ms, rows that came back non-finite."""
+        seconds waiting in them, device ms, rows that came back non-finite,
+        whether it carried the trace."""
         torch.cuda.synchronize()
         return [
             dict(steps=st.num_steps, attempts=st.num_attempts, evals=2 + 6 * st.num_attempts,
                  syncs=st.num_syncs, sync_s=st.sync_seconds, ms=a.elapsed_time(b),
-                 nan_rows=int((~torch.isfinite(y).all(dim=-1)).sum()), rows=y.shape[0])
-            for st, a, b, y in self.solves
+                 nan_rows=int((~torch.isfinite(y).all(dim=-1)).sum()), rows=y.shape[0],
+                 traced=traced)
+            for st, a, b, y, traced in self.solves
         ]
 
 
@@ -1296,16 +1342,20 @@ def _clone_args(args) -> tuple:
 
 
 def _run_program(example, config_name, common, setup, sampling, et, overrides, blocks,
-                 capture_at=None, **run_kwargs) -> dict:
+                 capture_at=None, local_extra=None, **run_kwargs) -> dict:
     """One run of an experiment entry point's ``run`` (``example.run(cfg,
-    device="cuda", **run_kwargs)`` on ``config_name`` with ``overrides``)
-    with its epochs timed by CUDA events, its evaluations by the host
-    clock, every solve recorded, the kernels' launches counted and the
+    device="cuda", **run_kwargs)`` on ``config_name`` with ``overrides``,
+    and with the ``--local`` block and ``local_extra`` when that is given)
+    with its epochs timed by CUDA events, its evaluations and the default
+    plotter's sampling solves by the host clock, every solve recorded (the
+    log-density solves in ``rows``, the sample-only ones in
+    ``sample_rows``), the kernels' launches counted and the
     last epoch's arguments kept (``epoch_args``).  ``capture_at`` (a multiple of
     ``blocks``) keeps the arguments of that edge launch of the run and of
     the ``blocks - 1`` after it: the EGNN blocks of one field evaluation."""
-    cfg = common.load_experiment_config(str(common.CONFIG_DIR / config_name), False, overrides)
-    epochs, evals, captured, epoch_args = [], [], [], []
+    cfg = common.load_experiment_config(str(common.CONFIG_DIR / config_name),
+                                        local_extra is not None, overrides, local_extra or ())
+    epochs, evals, plots, captured, epoch_args = [], [], [], [], []
     orig_epoch = _timed(setup, "epoch", epochs, cuda_events=True)
     timed_epoch = setup.epoch
 
@@ -1315,6 +1365,7 @@ def _run_program(example, config_name, common, setup, sampling, et, overrides, b
 
     setup.epoch = keeping
     orig_eval = _timed(setup, "evaluate", evals, cuda_events=False)
+    orig_sample = _timed(setup, "sample_cnf", plots, cuda_events=False)
     orig_edge = et.edge_tangent
 
     def capturing(*args, **kwargs):
@@ -1334,13 +1385,15 @@ def _run_program(example, config_name, common, setup, sampling, et, overrides, b
         with SolveRecorder(sampling) as rec:
             logger, state = example.run(cfg, device="cuda", **run_kwargs)
     finally:
-        setup.epoch, setup.evaluate = orig_epoch, orig_eval
+        setup.epoch, setup.evaluate, setup.sample_cnf = orig_epoch, orig_eval, orig_sample
         et.edge_tangent = orig_edge
         orig_edge.launch_count += capturing.launch_count
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return dict(cfg=cfg, history=logger.history, state=state, launches=counts(), rows=rec.rows(),
-                epoch_ms=[a.elapsed_time(b) for a, b in epochs], eval_s=evals, wall=wall,
+    rows = rec.rows()
+    return dict(cfg=cfg, history=logger.history, state=state, launches=counts(),
+                rows=[r for r in rows if r["traced"]], sample_rows=[r for r in rows if not r["traced"]],
+                epoch_ms=[a.elapsed_time(b) for a, b in epochs], eval_s=evals, plot_s=plots, wall=wall,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9, captured=captured,
                 epoch_args=epoch_args[0] if epoch_args else None)
 
@@ -1622,11 +1675,14 @@ def phase_qm9_program(et, card: str) -> dict:
     # (d) MoG at its default width.
     zero_counts()
     t0 = time.perf_counter()
+    mog_dir = root / "mog"
     logger, state = run_training(mog.setup_mog_training(n_iteration=MOG_ITERATIONS, n_eval=1,
-                                                        device="cuda"))
+                                                        device="cuda", save_dir=str(mog_dir)))
     torch.cuda.synchronize()
     mog_s = time.perf_counter() - t0
     h = logger.history
+    figures = check_svgs(mog_dir / "plots", [
+        f"plot_{j:03d}_iter_{i:08d}.svg" for i in (-1, MOG_ITERATIONS - 1) for j in (0, 1)])
     metrics = ("test_log_lik", "test_kl", "test_approx_log_lik")
     check(all(len(h.get(m, [])) == 2 and all(math.isfinite(v) for v in h[m]) for m in metrics),
           f"(d) MoG metrics { {m: h.get(m) for m in metrics} }")
@@ -1636,8 +1692,181 @@ def phase_qm9_program(et, card: str) -> dict:
     print(f"[mog] (d) MoG, VectorNet (512, 512, 512), {MOG_ITERATIONS} iterations of 156 steps "
           f"and evaluations at -1 and {MOG_ITERATIONS - 1} on 256 test points: "
           + "; ".join(f"{m} {h[m][0]:.4f} -> {h[m][1]:.4f}" for m in metrics)
-          + f"; loss {h['loss'][0]:.4f} .. {h['loss'][-1]:.4f}; {mog_s:.1f} s wall; phase "
+          + f"; loss {h['loss'][0]:.4f} .. {h['loss'][-1]:.4f}; figures (SVG, each parsed) {figures}; "
+          f"{mog_s:.1f} s wall; phase "
           f"{time.perf_counter() - start:.1f} s; on {card}", flush=True)
+    return dict(edge=dict(ms=ms, plain_ms=plain_ms, abs_err=abs_err, **b), share=share)
+
+
+def check_svgs(directory: Path, names: list) -> str:
+    """Each of ``names`` is the only figure in ``directory``, parses as
+    SVG, and has a series in it; returns their sizes."""
+    import xml.etree.ElementTree as ET
+
+    found = sorted(p.name for p in directory.iterdir()) if directory.exists() else []
+    check(found == sorted(names), f"figures in {directory}: {found}, expected {sorted(names)}")
+    sizes = []
+    for name in names:
+        root = ET.parse(directory / name).getroot()
+        series = [e for e in root.iter() if e.get("class") in ("stairs", "scatter", "quiver", "line")]
+        check(root.tag == "{http://www.w3.org/2000/svg}svg" and series, f"{name}: no SVG series")
+        sizes.append(f"{name} {(directory / name).stat().st_size} B")
+    return ", ".join(sizes)
+
+
+def phase_aldp_program(et, card: str) -> dict:
+    """The ALDP program: (a) the HDF5 reader on the card; (b)
+    ``examples.aldp.run`` at aldp_soak.yaml's width, cut, with its
+    figures; (c) the edge kernel at the ALDP Hutchinson shape on one field
+    evaluation's inputs captured in (b); (d) the ``--local`` ALDP and DW4
+    programs on the card through the zero-padded edge kernel."""
+    import numpy as np
+
+    from ecnf_tpu_torch.cnf import sampling
+    from ecnf_tpu_torch.examples import aldp, common, dw4
+    from ecnf_tpu_torch.targets import load_aldp
+    from ecnf_tpu_torch.targets.h5 import read_dataset
+    from ecnf_tpu_torch.training import setup
+
+    start = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    root = repo / "build" / "aldp"
+    shutil.rmtree(root, ignore_errors=True)
+    h5 = str(repo / ALDP_H5)
+    paths = [f"target.{k}_path={h5}" for k in ("train", "valid", "test")]
+
+    # (a) the reader.
+    t0 = time.perf_counter()
+    coords = read_dataset(h5, "coordinates")
+    read_s = time.perf_counter() - t0
+    c = coords.astype(np.float64).ravel()
+    sums = (math.fsum(c), math.fsum(c * c))
+    print(f"[aldp] (a) targets.h5.read_dataset({ALDP_H5}, coordinates): {coords.shape} "
+          f"{coords.dtype}, finite {bool(np.isfinite(coords).all())}, float64 sum {sums[0]!r}, "
+          f"sum of squares {sums[1]!r} (pinned on the CPU against h5py: {ALDP_H5_SUMS}); "
+          f"{read_s * 1e3:.1f} ms", flush=True)
+    check(coords.shape == (2000, 22, 3) and coords.dtype == np.float32
+          and bool(np.isfinite(coords).all()) and sums == ALDP_H5_SUMS, "(a) the ALDP coordinates")
+
+    # (b) the program at aldp_soak.yaml's width, cut.
+    save_dir = root / "run"
+    cuts = list(ALDP_CUTS) + paths + [f"training.save_dir={save_dir}"]
+    print(f"[aldp] (b) aldp_soak.yaml cut by {' '.join(ALDP_CUTS)} (and the data's absolute path)",
+          flush=True)
+    run = _run_program(aldp, "aldp_soak.yaml", common, setup, sampling, et, cuts, blocks=ALDP_BLOCKS,
+                       capture_at=ALDP_CAPTURE_AT)
+    cfg = run["cfg"]
+    t, net = cfg.training, cfg.flow.network
+    check(list(net.mlp_units) == [64, 64] and net.n_blocks_egnn == ALDP_BLOCKS
+          and net.n_invariant_feat_hidden == 32 and net.time_embedding_dim == 8
+          and net.compute_dtype == "bfloat16" and t.batch_size == 256 and t.use_ema
+          and t.optimizer.use_schedule and t.train_set_size == 1600 and t.test_set_size == 400
+          and cfg.target.test_skip == 1600 and t.final_run and not t.eval_exact_log_prob
+          and t.epochs_per_dispatch == 50, f"aldp_soak.yaml read as {t} {net} {cfg.target}")
+    train, _, test = load_aldp(train_path=h5, test_path=h5, train_n_points=1600, test_skip_n=1600,
+                               device="cpu")
+    check(torch.equal(train.positions, torch.from_numpy(coords[:1600]))
+          and torch.equal(test.positions[:400], torch.from_numpy(coords[1600:2000])),
+          "(b) splits: 1,600 training frames, then 400 disjoint test frames")
+    h = run["history"]
+    steps = ALDP_STEPS_PER_EPOCH
+    iterations = [-1] + [0] * steps + [1] * steps + [1]
+    losses, lls = h.get("loss", []), h.get("test_log_lik", [])
+    check(h["iteration"] == [float(i) for i in iterations], f"(b) iterations {h['iteration']}")
+    check(len(losses) == 2 * steps and all(map(math.isfinite, losses)), f"(b) losses {losses}")
+    check(len(lls) == 2 and all(map(math.isfinite, lls)), f"(b) test_log_lik {lls}")
+    check(all(v > 0 for v in h["eval_ode_steps"]), f"(b) eval_ode_steps {h['eval_ode_steps']}")
+    names = sorted(p.name for p in (save_dir / "model_checkpoints").iterdir())
+    check(names == ["state_00000001"], f"(b) checkpoints {names}")
+    figures = check_svgs(save_dir / "plots", ["plot_000_iter_-0000001.svg",
+                                              "plot_000_iter_00000001.svg"])
+    rows, launched = run["rows"], run["launches"]
+    evals = sum(r["evals"] for r in rows)
+    check(launched["edge_tangent"] == ALDP_BLOCKS * evals and launched["egcl"] == launched["fused_trace"] == 0,
+          f"(b) launches {launched} for {evals} field evaluations")
+    check(not any(r["nan_rows"] for r in rows), "(b) non-finite rows in an evaluation")
+    check(len(run["sample_rows"]) == 2 and len(run["plot_s"]) == 2,
+          f"(b) {len(run['sample_rows'])} plotting solves")
+    step_ms = [ms / steps for ms in run["epoch_ms"]]
+    print(f"[aldp] (b) iterations logged {sorted(set(h['iteration']))}; {len(losses)} losses "
+          f"{losses[0]:.4f} .. {losses[-1]:.4f}; ms per train step by CUDA events "
+          + ", ".join(f"{v:.2f}" for v in step_ms) + " (an epoch of 6 steps each, the first with "
+          "the set-up); evaluations (Hutchinson, 1 probe, 2 batches of 256): "
+          + "; ".join(f"test_log_lik {a:.4f} eval_ode_steps {b:.2f}"
+                      for a, b in zip(lls, h["eval_ode_steps"]))
+          + f"; seconds per evaluation {', '.join(f'{v:.2f}' for v in run['eval_s'])} and per "
+          f"plotting solve ({t.plot_batch_size} samples) {', '.join(f'{v:.2f}' for v in run['plot_s'])}; "
+          "log-density solves: " + ", ".join(f"{r['steps']} steps / {r['attempts']} attempts "
+                                             f"({r['ms']:.1f} ms)" for r in rows)
+          + "; plotting solves: " + ", ".join(f"{r['steps']} steps / {r['attempts']} attempts "
+                                              f"({r['ms']:.1f} ms)" for r in run["sample_rows"])
+          + f"; {evals} field evaluations, {launched['edge_tangent']} edge launches "
+          f"({launched['edge_tangent'] / evals:g} per evaluation); figures {figures}; peak device "
+          f"memory {run['peak_gb']:.2f} GB; {run['wall']:.1f} s wall", flush=True)
+
+    # (c) the edge kernel at the ALDP Hutchinson shape on the captured inputs.
+    check(len(run["captured"]) == ALDP_BLOCKS, f"(c) captured {len(run['captured'])} launches")
+    K, B, N, U, L = (ALDP_HUTCH_EDGE[k] for k in ("K", "B", "N", "U", "L"))
+    for i, a in enumerate(run["captured"]):
+        check(tuple(a[0].shape) == (K, B, N, U) and a[0].dtype == torch.bfloat16 and len(a[3]) == L,
+              f"(c) block {i} a_t {tuple(a[0].shape)} {a[0].dtype}")
+        abs_err, rel = edge_errors(et.edge_tangent(*a), et.edge_tangent_reference(*a))
+        print(f"[aldp] (c) edge_tangent {ALDP_HUTCH_EDGE} bfloat16, block {i} of field evaluation "
+              f"{ALDP_CAPTURE_AT // ALDP_BLOCKS} of the evaluation at -1: max_abs_err={abs_err:.3e} "
+              f"rel={rel:.3e} (limit {EDGE_LIMITS[torch.bfloat16]:.0e})", flush=True)
+        check(math.isfinite(rel) and rel <= EDGE_LIMITS[torch.bfloat16],
+              f"ALDP Hutchinson edge_tangent block {i}: rel error {rel:.3e}")
+    a = run["captured"][0]
+    out = et.edge_tangent(*a)
+    abs_err, _ = edge_errors(out, et.edge_tangent_reference(*a))
+    ms = cuda_ms(lambda: et.edge_tangent(*a), 50)
+    plain_ms = cuda_ms(lambda: et.edge_tangent_reference(*a), 50)
+    b = bound(edge_flop(B * N * N, K, L, U), nbytes(a, out), BF16_FLOPS)
+    cols = et.default_columns(0, torch.bfloat16, K, B, N, U, L)
+    plan = et.launch_plan(0, torch.bfloat16, K, B, N, U, L, cols)
+    solve_ms = sum(r["ms"] for r in rows)
+    share = launched["edge_tangent"] * ms / solve_ms
+    print(f"[aldp] (c) edge_tangent at the ALDP Hutchinson shape (bf16, block 0): kernel "
+          f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, {rate_line(b, ms)} (its operations "
+          f"alone {b['flop'] / BF16_FLOPS * 1e6:.1f} us, its {nbytes(a, out) / 1e6:.1f} MB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s {nbytes(a, out) / HBM_BYTES_PER_S * 1e6:.1f} us); "
+          f"cost model: {cols} columns per thread block, {plan['smem_bytes']} B of shared memory, "
+          f"{plan['blocks_per_sm']} blocks per SM, {plan['row_tiles']} row tiles per warp; "
+          f"{launched['edge_tangent']} launches x {ms:.4f} ms = {100 * share:.1f}% of "
+          f"{solve_ms:.1f} ms of (b)'s evaluation solves (CUDA events); on {card}", flush=True)
+
+    # (d) --local on the card: ALDP (U=4) and DW4 (U=16) through the padded kernel.
+    local_runs = (
+        ("aldp", aldp, "aldp.yaml", list(ALDP_LOCAL_CUTS) + paths, 1, {}),
+        ("dw4", dw4, "dw4.yaml", list(ALDP_LOCAL_CUTS), 2,
+         dict(data_dir=repo / "build" / "dw4" / "data")),
+    )
+    for name, example, config_name, overrides, blocks, kwargs in local_runs:
+        r = _run_program(example, config_name, common, setup, sampling, et, overrides, blocks,
+                         capture_at=blocks * 20, local_extra=example.LOCAL_EXTRA, **kwargs)
+        h, width = r["history"], r["cfg"].flow.network.mlp_units[0]
+        evals = sum(x["evals"] for x in r["rows"])
+        check(all(map(math.isfinite, h["loss"])) and len(h["test_log_lik"]) == 2
+              and all(map(math.isfinite, h["test_log_lik"])), f"(d) {name} --local: {h}")
+        check(r["launches"]["edge_tangent"] == blocks * evals,
+              f"(d) {name} --local: launches {r['launches']} for {evals} field evaluations")
+        check(len(r["captured"]) == blocks, f"(d) {name}: captured {len(r['captured'])} launches")
+        errors = []
+        for a in r["captured"]:
+            check(a[0].shape[-1] == width, f"(d) {name}: captured U={a[0].shape[-1]}")
+            abs_err, rel = edge_errors(et.edge_tangent(*a), et.edge_tangent_reference(*a))
+            check(math.isfinite(rel) and rel <= EDGE_LIMITS[a[0].dtype],
+                  f"(d) {name} padded edge_tangent U={width}: rel error {rel:.3e}")
+            errors.append(f"{rel:.3e}")
+        print(f"[aldp] (d) {name} --local on the card ({' '.join(ALDP_LOCAL_CUTS)}): mlp_units "
+              f"[{width}] padded to {et.kernel_units(width)} in the edge kernel; {len(h['loss'])} "
+              f"losses, test_log_lik {', '.join(f'{v:.4f}' for v in h['test_log_lik'])}; "
+              f"{r['launches']['edge_tangent']} edge launches for {evals} field evaluations; the "
+              f"padded kernel on one field evaluation's {blocks} block(s), "
+              f"{str(a[0].dtype).replace('torch.', '')}, rel to the plain version at U={width}: "
+              f"{', '.join(errors)} (limit {EDGE_LIMITS[a[0].dtype]:.0e}); {r['wall']:.1f} s wall",
+              flush=True)
+    print(f"[aldp] phase {time.perf_counter() - start:.1f} s; on {card}", flush=True)
     return dict(edge=dict(ms=ms, plain_ms=plain_ms, abs_err=abs_err, **b), share=share)
 
 
@@ -1680,6 +1909,7 @@ def main() -> None:
     phase_evaluation(sampling, score, setup, energies, et, fused_trace, card)
     phase_training_program(et, card)
     phase_qm9_program(et, card)
+    phase_aldp_program(et, card)
 
     # Per kernel, its main-path shapes: the LJ13 structured solve's bf16
     # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches)

@@ -7,8 +7,11 @@ tail, the phi_x chain and the gate, returning ``phi_t [K, B, N, N]`` and
 ``mi_t [K, B, N, U]`` in f32.
 
 - On CUDA tensors it launches the hand-written kernel in
-  ``csrc/edge_tangent.cu`` (built by `ops.cuda_build` at first use).  It
-  raises on anything the kernel does not take; there is no fallback.
+  ``csrc/edge_tangent.cu`` (built by `ops.cuda_build` at first use).  A
+  width U that the kernel does not take (it takes 32, 64, 128 and 256) is
+  zero-padded to the next one it takes (`pad_units`) and ``mi_t`` cut back
+  to U.  It raises on anything else the kernel does not take; there is no
+  fallback.
 - On CPU tensors it runs `edge_tangent_reference`, the same math in plain
   torch ops, which is also the kernel's oracle.
 
@@ -23,6 +26,7 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ecnf_tpu_torch.ops.cuda_build import check_tensor, load_library
 from ecnf_tpu_torch.ops.graph import dense_edge_mask
@@ -83,6 +87,35 @@ def edge_tangent_reference(
     return phi_t, mi_t
 
 
+def kernel_units(U: int) -> int:
+    """The smallest width the kernel takes that is at least ``U``."""
+    for width in _UNITS:
+        if U <= width:
+            return width
+    raise ValueError(f"edge_tangent: U={U} is wider than the kernel's {_UNITS[-1]}")
+
+
+def pad_units(
+    a_t: Tensor, b_t: Tensor, l2_t: Tensor,
+    d_e: Sequence[Tensor], d_x: Sequence[Tensor], m: Tensor, g: Tensor,
+    gd: Tensor, e_l: Tensor, e_tail: Sequence[Tensor],
+    x_tail: Sequence[Tensor], x_out: Tensor, g_out: Tensor, width: int,
+) -> tuple:
+    """The edge chain's arguments with the units zero-padded from U to
+    ``width``: the ``[.., U]`` tangents and residuals, and the weights'
+    rows and columns.  The chain's outputs are unchanged by it: a padded
+    unit's tangent is zero at the first layer (its inputs and ``e_l`` entry
+    are zero), each layer keeps it zero (its rows and columns of the
+    ``[U, U]`` weights are zero, and its silu' factor multiplies a zero),
+    and its ``x_out`` and ``g_out`` entries are zero, so ``phi_t`` is the
+    same and the padded units of ``mi_t`` are zero."""
+    U = a_t.shape[-1]
+    vec = lambda x: F.pad(x, (0, width - U))
+    mat = lambda x: F.pad(x, (0, width - U, 0, width - U))
+    return (vec(a_t), vec(b_t), l2_t, [vec(d) for d in d_e], [vec(d) for d in d_x], vec(m), g, gd,
+            vec(e_l), [mat(k) for k in e_tail], [mat(k) for k in x_tail], vec(x_out), vec(g_out))
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = load_library("edge_tangent")
@@ -140,7 +173,9 @@ def edge_tangent(
     CPU tensors take the plain version.  CUDA tensors launch the kernel on
     the current stream, without synchronising; the arguments must match
     the documented shapes exactly, be contiguous and share one dtype
-    (float32 or bfloat16; ``l2_t`` is always float32).
+    (float32 or bfloat16; ``l2_t`` is always float32).  A U of at most 256
+    that the kernel does not take is zero-padded (`pad_units`), which
+    leaves the outputs as they are.
     ``columns_per_block`` overrides the kernel's choice of tangent columns
     per thread block; it must be at least 1, and a value that does not
     launch raises.  The outputs do not depend on it beyond the order of
@@ -158,7 +193,7 @@ def edge_tangent(
     cd, dev = a_t.dtype, a_t.device
     if cd not in _DTYPE_CODES:
         raise TypeError(f"edge_tangent: unsupported dtype {cd}")
-    if not (2 <= N <= _MAX_NODES and U in _UNITS and 1 <= L <= _MAX_LAYERS):
+    if not (2 <= N <= _MAX_NODES and 1 <= U <= _UNITS[-1] and 1 <= L <= _MAX_LAYERS):
         raise ValueError(f"edge_tangent: unsupported N={N}, U={U}, L={L}")
     if len(d_x) != L or len(e_tail) != L - 1 or len(x_tail) != L:
         raise ValueError("edge_tangent: inconsistent layer counts")
@@ -177,13 +212,17 @@ def edge_tangent(
         for l, k in enumerate(ks):
             check_tensor(f"{name}[{l}]", k, (U, U), cd, dev)
 
+    width = kernel_units(U)
+    if width != U:
+        (a_t, b_t, l2_t, d_e, d_x, m, g, gd, e_l, e_tail, x_tail, x_out,
+         g_out) = pad_units(*args, width=width)
     phi_t = torch.empty((K, B, N, N), dtype=torch.float32, device=dev)
-    mi_t = torch.empty((K, B, N, U), dtype=torch.float32, device=dev)
-    cols = columns_per_block or default_columns(dev.index or 0, cd, K, B, N, U, L)
+    mi_t = torch.empty((K, B, N, width), dtype=torch.float32, device=dev)
+    cols = columns_per_block or default_columns(dev.index or 0, cd, K, B, N, width, L)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _library().ecnf_edge_tangent(
-            _DTYPE_CODES[cd], K, B, N, U, L, cols,
+            _DTYPE_CODES[cd], K, B, N, width, L, cols,
             a_t.data_ptr(), b_t.data_ptr(), l2_t.data_ptr(),
             _pointers(d_e), _pointers(d_x),
             m.data_ptr(), g.data_ptr(), gd.data_ptr(), e_l.data_ptr(),
@@ -197,7 +236,7 @@ def edge_tangent(
             f"U={U} L={L} {cd} columns={cols}"
         )
     edge_tangent.launch_count += 1
-    return phi_t, mi_t
+    return phi_t, mi_t[..., :U]
 
 
 edge_tangent.launch_count = 0

@@ -1,4 +1,4 @@
-"""DW4, LJ13 and QM9 datasets (port of the DW4, LJ13 and QM9 loaders of
+"""DW4, LJ13, QM9 and ALDP datasets (port of the loaders of
 `ecnf_tpu/targets/data.py`).
 
 The original blobs of the reference (``dw4-dataidx.npy``; ``holdout_data_LJ13.npy``,
@@ -10,6 +10,8 @@ The JAX package's own regenerations (``*_generated.npy``) come from
 another random stream and are never read here, nor written.  QM9 reads
 the ``qm9pos_*.npy`` files that `targets/qm9.py` writes (and downloads
 GDB9 for, when they are missing) or seeded stand-ins behind a marker.
+ALDP reads an mdtraj HDF5 trajectory with the port's own reader
+(`targets/h5.py`; the card has no h5py).
 """
 import os
 import time
@@ -238,3 +240,39 @@ def load_qm9(
         assert train_set_size <= len(train_data)
     train_data = train_data[:train_set_size]
     return _to_graphs(device, train_data, np.load(fpath_val), np.load(fpath_test))
+
+
+def load_aldp(
+    train_path: Optional[PathLike] = None,
+    val_path: Optional[PathLike] = None,
+    test_path: Optional[PathLike] = None,
+    train_n_points: Optional[int] = None,
+    val_n_points: Optional[int] = None,
+    test_n_points: Optional[int] = None,
+    val_skip_n: int = 0,
+    test_skip_n: int = 0,
+    device=None,
+) -> Tuple[Optional[FullGraphSample], Optional[FullGraphSample], Optional[FullGraphSample]]:
+    """Alanine dipeptide: the ``coordinates`` of mdtraj HDF5 trajectories,
+    one per split (None where its path is None), on ``device`` (the card
+    unless another is named).  Node features are the atom index,
+    ``arange(n_atoms)``.  ``val_skip_n`` / ``test_skip_n`` leading frames
+    are dropped before ``*_n_points`` are kept, so that one file can give
+    disjoint splits."""
+    from ecnf_tpu_torch.targets.h5 import read_dataset
+
+    device = resolve_device(device)
+    out = []
+    for path, n_points, skip in ((train_path, train_n_points, 0), (val_path, val_n_points, val_skip_n),
+                                 (test_path, test_n_points, test_skip_n)):
+        if path is None:
+            out.append(None)
+            continue
+        positions = read_dataset(path, "coordinates")[skip:]
+        if n_points is not None:
+            positions = positions[:n_points]
+        positions = torch.as_tensor(np.asarray(positions, dtype=np.float32)).to(device)
+        n, n_atoms = positions.shape[:2]
+        features = torch.arange(n_atoms, dtype=torch.int32, device=device)[None, :, None]
+        out.append(FullGraphSample(positions, features.expand(n, n_atoms, 1).contiguous()))
+    return tuple(out)

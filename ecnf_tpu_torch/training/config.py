@@ -87,7 +87,8 @@ class TrainingConfig:
     microbatch: Optional[int] = None
     eval_dispatch_chunk: int = 8
     profile_dir: Optional[str] = None
-    # Plots during evaluations; not ported yet (`setup_training` says so).
+    # Figures after each evaluation (SVG; the default plotter's sampling
+    # solve runs only when true).
     eval_plots: bool = True
 
 
@@ -96,8 +97,8 @@ class TargetConfig:
     train_path: Optional[str] = None
     test_path: Optional[str] = None
     valid_path: Optional[str] = None
-    # Frames to drop from the head of the valid/test files (ALDP, not
-    # ported yet).
+    # Frames to drop from the head of the valid/test files (ALDP: disjoint
+    # splits of one trajectory).
     valid_skip: int = 0
     test_skip: int = 0
 

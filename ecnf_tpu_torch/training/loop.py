@@ -152,6 +152,10 @@ def run_training(config: TrainConfig) -> Tuple[Logger, TrainingStateT]:
               f"{sum(eval_s):.1f} s ({', '.join(f'{v:.2f}' for v in eval_s)}); "
               f"{time.time() - start_time:.1f} s since the start")
 
+    # The JAX loop renders `plot_history` of a `ListLogger`'s history here
+    # and discards the figure; nothing is written, so the port has the
+    # function (`utils.plotting.plot_history`) and not the call.
+
     # Upload checkpoints and plots with a live wandb run.
     if isinstance(config.logger, WandbLogger) and config.save and config.logger._wandb:
         wandb = config.logger._wandb

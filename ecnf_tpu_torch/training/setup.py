@@ -1,25 +1,31 @@
 """Experiment set-up: config + data + CNF -> `TrainConfig` (port of
-`ecnf_tpu/training/setup.py`): the epoch runner, the evaluation, and
-`setup_training`, which joins them with the optimizer, the logger and the
-data.
+`ecnf_tpu/training/setup.py`): the epoch runner, the evaluation, the
+default plotter, and `setup_training`, which joins them with the
+optimizer, the logger and the data.
 
 The JAX module builds its evaluation as closures over a config; here the
 evaluation is plain functions of the CNF and the settings, and
 `setup_training` closes over them.  The CNF is evaluated with the
 parameters its field holds, so the caller chooses them (the EMA parameters
-at the end of training).  One card, no mesh.  Plots are not ported yet.
+at the end of training).  One card, no mesh.  Figures are SVG
+(`utils.figure`; the card has no matplotlib).
 """
 import copy
 import os
 import pathlib
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ecnf_tpu_torch.cnf.build import build_cnf, resolve_device
 from ecnf_tpu_torch.cnf.core import FlowMatchingCNF
-from ecnf_tpu_torch.cnf.sampling import SolveConfig, get_log_prob, sample_and_log_prob_cnf
+from ecnf_tpu_torch.cnf.sampling import (
+    SolveConfig,
+    get_log_prob,
+    sample_and_log_prob_cnf,
+    sample_cnf,
+)
 from ecnf_tpu_torch.ops.numerics import maybe_masked_mean
 from ecnf_tpu_torch.training.evaluation import (
     calculate_forward_ess,
@@ -31,6 +37,12 @@ from ecnf_tpu_torch.training.loggers import WandbLogger, setup_logger
 from ecnf_tpu_torch.training.loop import TrainConfig
 from ecnf_tpu_torch.training.optim import build_optimizer
 from ecnf_tpu_torch.training.state import TrainingState, init_training_state, make_update_fn
+from ecnf_tpu_torch.utils.figure import Figure
+from ecnf_tpu_torch.utils.plotting import (
+    bin_samples_by_dist,
+    get_counts,
+    get_pairwise_distances_for_plotting,
+)
 
 Tensor = torch.Tensor
 
@@ -244,12 +256,55 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
 
 
 LoadDatasetFn = Callable[[Optional[int], Optional[int]], tuple]
+# (state, train data, generator) -> figures.
+Plotter = Callable[[TrainingState, object, torch.Generator], List[Figure]]
+
+
+def setup_default_plotter(
+    cnf: FlowMatchingCNF, n_nodes: int, dim: int, n_samples_plotting: int, solve_cfg: SolveConfig
+) -> Plotter:
+    """The distance histogram of flow samples against training data (port
+    of `ecnf_tpu/training/setup.py: setup_default_plotter`): one batched
+    `sample_cnf` of ``n_samples_plotting`` samples, with the first training
+    row's node features and base samples drawn from the generator, the
+    state's parameters loaded into ``cnf``'s field; the first
+    ``n_samples_plotting`` training points' distances set the shared bins
+    (at ``max_distance=10.0``) and both are counted in them."""
+
+    def default_plotter(state: TrainingState, train_data_, generator: torch.Generator) -> List[Figure]:
+        cnf.field.load_state_dict(state.params)
+        feats = train_data_.features[0].reshape(1, -1).repeat(n_samples_plotting, 1)
+        flow_samples = sample_cnf(cnf, n_samples_plotting, feats, solve_cfg, generator)
+        flow_samples = flow_samples.reshape(n_samples_plotting, n_nodes, dim)
+
+        bins_x, count_list = bin_samples_by_dist(
+            [train_data_.positions[:n_samples_plotting]], max_distance=10.0
+        )
+        distances_flow = get_pairwise_distances_for_plotting(
+            flow_samples, train_data_.positions.shape[1], max_distance=10.0
+        )
+        counts_flow = get_counts(distances_flow, bins_x)
+
+        fig = Figure(figsize=(5, 5))
+        ax = fig.axes[0]
+        ax.stairs(count_list[0], bins_x, label="train samples", alpha=0.4, fill=True)
+        ax.stairs(counts_flow, bins_x, label="flow samples", alpha=0.4, fill=True)
+        ax.legend()
+        return [fig]
+
+    return default_plotter
+
+
+def plot_path(plots_dir: str, j: int, iteration_n: int) -> str:
+    """Where figure ``j`` of the evaluation at ``iteration_n`` is written."""
+    return os.path.join(plots_dir, "plot_%03i_iter_%08i.svg" % (j, iteration_n))
 
 
 def setup_training(
     cfg: ExperimentConfig,
     load_dataset: LoadDatasetFn,
     target_log_prob_fn: Optional[TargetLogProb] = None,
+    plotter: Optional[Plotter] = None,
     device=None,
 ) -> TrainConfig:
     """The `TrainConfig` of an experiment: ``load_dataset(train_set_size,
@@ -258,13 +313,15 @@ def setup_training(
     max(n // batch_size, 1)`` steps; the CNF with ``n_features = max + 1``;
     the evaluation on the test set (with the reverse ESS when
     ``eval_n_model_samples`` is set and there is a target), on the EMA
-    parameters at the final iteration.
+    parameters at the final iteration, and with ``eval_plots`` (the
+    default) the figures of ``plotter`` (`setup_default_plotter` when None)
+    after it, drawn with the evaluation's generator and written as
+    ``plot_%03i_iter_%08i.svg`` when saving.
 
     ``compile_cache``, ``epochs_per_dispatch`` and ``eval_dispatch_chunk``
     tune XLA compilation and dispatch and are ignored (an eager epoch has
     no dispatch to group); the fields of `_UNPORTED` are refused unless
-    at their defaults; with ``eval_plots`` (the default) a line says that
-    plots are not ported yet, and no plotting solve runs.
+    at their defaults.
     """
     _refuse_unported(cfg)
     device = resolve_device(device)
@@ -334,8 +391,12 @@ def setup_training(
         state, infos = epoch(state, update_fn, train_pos_flat, train_features_flat, batch_size)
         return state, {k: v.cpu() for k, v in infos.items()}
 
-    if tcfg.eval_plots:
-        print("eval_plots: plots are not ported to ecnf_tpu_torch yet; evaluations run without them")
+    # `eval_plots: false` skips the plotting solve.
+    if not tcfg.eval_plots:
+        plotter = None
+    elif plotter is None:
+        plotter = setup_default_plotter(cnf, n_nodes, dim, tcfg.plot_batch_size, solve_cfg)
+    train_data_ = train_data._replace(positions=train_pos)
 
     with_rv = target_log_prob_fn is not None and tcfg.eval_n_model_samples is not None
 
@@ -343,15 +404,21 @@ def setup_training(
         state: TrainingState, generator: torch.Generator, iteration_n: int, save: bool,
         plots_dir: Optional[str],
     ) -> dict:
-        """`evaluate` on the test set; the EMA parameters on the final
-        evaluation.  Draws (probes, base samples) come from ``generator``."""
-        use_ema = tcfg.use_ema and tcfg.n_training_iter - 1 == iteration_n
-        cnf.field.load_state_dict(state.ema_params if use_ema else state.params)
+        """`evaluate` on the test set, then the plotter's figures; the EMA
+        parameters on the final evaluation.  Draws (probes, base samples)
+        come from ``generator``."""
+        if tcfg.use_ema and tcfg.n_training_iter - 1 == iteration_n:
+            state = state._replace(params=state.ema_params)
+        cnf.field.load_state_dict(state.params)
         info = evaluate(
             cnf, test_pos_flat, test_features_flat, train_features_flat[0], tcfg.eval_batch_size,
             target_log_prob_fn, tcfg.eval_n_model_samples if with_rv else None,
             tcfg.eval_exact_log_prob, solve_cfg, generator,
         )
+        figures = plotter(state, train_data_, generator) if plotter is not None else []
+        for j, figure in enumerate(figures):
+            if save and plots_dir is not None:
+                figure.savefig(plot_path(plots_dir, j, iteration_n))
         return {k: np.asarray(v) for k, v in info.items()}
 
     return TrainConfig(

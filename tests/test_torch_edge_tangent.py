@@ -4,7 +4,8 @@ The plain version `edge_tangent_reference` against the JAX package's Pallas
 kernel `_edge_tangent_pallas` in interpret mode, on random inputs of the
 kernel's own shapes: f32 (rtol 1e-5) and bf16 (3e-2 of the output's
 scale), the bf16 case pinning the rounding points that the CUDA kernel's
-register epilogue reproduces.  The CUDA kernel itself is checked against
+register epilogue reproduces.  The zero-padding of a width the kernel
+does not take (`pad_units`) leaves the plain chain's outputs unchanged.  The CUDA kernel itself is checked against
 the plain version in `test_torch_edge_tangent_gpu.py`, on a card.
 """
 import jax.numpy as jnp
@@ -108,3 +109,34 @@ def test_wrapper_on_cpu_ignores_columns_per_block():
     for cols in (0, -1):
         with pytest.raises(ValueError, match="columns_per_block"):
             et.edge_tangent(**args, columns_per_block=cols)
+
+
+@pytest.mark.parametrize("U", [4, 16])
+@pytest.mark.parametrize("L", [1, 2])
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 1e-6), (torch.bfloat16, 1e-2)],
+                         ids=["f32", "bf16"])
+def test_padded_units_leave_the_chain_unchanged(U, L, dtype, limit):
+    # The card's wrapper zero-pads a width the kernel does not take (the
+    # `--local` widths) to the next one it takes.  On the plain version the
+    # padded units of mi_t are exactly zero and the rest agree with the
+    # unpadded chain up to the order of the f32 sums inside the products
+    # (in bf16 such a last-bit change can flip one rounding to bf16: phase
+    # 3's bf16 limit).
+    args = torch_args(edge_inputs(3, 2, 5, U, L, seed=U + L), dtype)
+    width = et.kernel_units(U)
+    assert width == 32
+    padded = et.pad_units(**args, width=width)
+    assert padded[0].shape == (3, 2, 5, width)
+    assert all(k.shape == (width, width) for k in padded[9] + padded[10])
+    phi, mi = et.edge_tangent_reference(*padded)
+    ref_phi, ref_mi = et.edge_tangent_reference(**args)
+    assert mi.shape == (3, 2, 5, width) and bool((mi[..., U:] == 0).all())
+    for out, ref in ((phi, ref_phi), (mi[..., :U], ref_mi)):
+        assert ((out - ref).abs().max() / ref.abs().max()).item() <= limit
+
+
+def test_kernel_units():
+    assert [et.kernel_units(u) for u in (1, 4, 16, 32, 33, 64, 100, 256)] == [
+        32, 32, 32, 32, 64, 64, 128, 256]
+    with pytest.raises(ValueError, match="wider"):
+        et.kernel_units(257)

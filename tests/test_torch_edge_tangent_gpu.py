@@ -11,7 +11,8 @@ largest magnitude in bfloat16, and so the Hutchinson route's per-sample
 probes (4 per sample) at QM9 width.  A thread block takes C tangent columns of one
 (receiver, sample) as C * N rows in 16-row tensor-core tiles: the chunking
 cases put ragged row counts (C * N % 16 != 0), a K that C does not divide,
-and C = 1, the default and the largest C that launches through it.
+and C = 1, the default and the largest C that launches through it.  Widths
+the kernel does not take (U = 4, 16, 100) go through its zero-padding.
 """
 import pytest
 import torch
@@ -59,6 +60,22 @@ def test_kernel_matches_plain_on_cuda(cuda, K, B, N, U, L, dtype, limit):
     out = et.edge_tangent(**args)
     torch.cuda.synchronize()
     assert et.edge_tangent.launch_count == before + 1
+    _check(out, et.edge_tangent_reference(**args), limit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,limit", LIMITS)
+@pytest.mark.parametrize("K,B,N,U,L", [(2, 8, 5, 16, 2), (1, 4, 22, 4, 1), (36, 4, 13, 16, 2),
+                                       (3, 2, 19, 100, 2)])
+def test_padded_width_matches_plain_on_cuda(cuda, K, B, N, U, L, dtype, limit):
+    # A width the kernel does not take (the `--local` widths 4 and 16) is
+    # zero-padded to the next it takes; held to the plain version at U.
+    args = torch_args(edge_inputs(K, B, N, U, L, seed=5), dtype, cuda)
+    before = et.edge_tangent.launch_count
+    out = et.edge_tangent(**args)
+    torch.cuda.synchronize()
+    assert et.edge_tangent.launch_count == before + 1
+    assert out[1].shape == (K, B, N, U)
     _check(out, et.edge_tangent_reference(**args), limit)
 
 

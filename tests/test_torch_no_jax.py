@@ -1,8 +1,12 @@
 """The port imports no JAX: every `ecnf_tpu_torch` module, and the
 ``--help`` of the sampling, scoring, timing, experiment and
 synthetic-QM9 entry points, load in a process where ``import jax`` fails, and so do ``yaml``, ``pandas``,
-``h5py``, ``matplotlib`` and ``tqdm``, which the card's machine lacks."""
+``h5py``, ``matplotlib`` and ``tqdm``, which the card's machine lacks.
+In that process the ALDP loader reads its HDF5 file and the figures are
+written, and no source file of the port imports ``h5py`` or
+``matplotlib``."""
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -23,8 +27,14 @@ for name in names:
 loaded = [n for n in sys.modules if sys.modules[n] is not None]
 assert not any(n.split(".")[0] in BLOCKED or n.startswith("ecnf_tpu.") for n in loaded)
 print(len(names))
+from ecnf_tpu_torch.targets import load_aldp
+from ecnf_tpu_torch.utils.plotting import plot_history
+train, _, _ = load_aldp(train_path="data/aldp_500K_train_mini.h5", train_n_points=3, device="cpu")
+assert tuple(train.positions.shape) == (3, 22, 3)
+assert "<svg" in plot_history({"loss": [1.0, 0.5]}).to_svg()
 for program in ("sample", "score", "examples.dw4", "examples.lj13", "examples.qm9",
-                "examples.mog", "measure_sampling_time", "targets.synthetic_qm9"):
+                "examples.aldp", "examples.mog", "measure_sampling_time",
+                "targets.synthetic_qm9"):
     sys.argv = [program, "--help"]
     try:
         runpy.run_module(f"ecnf_tpu_torch.{program}", run_name="__main__")
@@ -42,7 +52,7 @@ def test_port_imports_without_jax():
         "training.config", "training.loggers", "training.checkpoints", "training.loop",
         "examples.common", "examples.dw4", "examples.lj13", "examples.qm9", "examples.mog",
         "measure_sampling_time", "targets.qm9", "targets.synthetic_qm9", "targets.mog",
-        "models.vector_net",
+        "models.vector_net", "targets.h5", "utils.plotting", "utils.figure", "examples.aldp",
     )}
     assert program_modules <= names
     expected = len(names)
@@ -51,8 +61,16 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
-    assert int(lines[0]) == expected >= 33
+    assert int(lines[0]) == expected >= 38
     assert proc.stdout.count("--params-npz") >= 2
     assert "--hutchinson-probes" in proc.stdout and "--data" in proc.stdout
-    assert proc.stdout.count("--local") >= 3 and proc.stdout.count("overrides") >= 4
+    assert proc.stdout.count("--local") >= 4 and proc.stdout.count("overrides") >= 5
     assert "--checkpoint-dir" in proc.stdout and "--wandb-project" in proc.stdout
+
+
+def test_port_sources_import_no_h5py_or_matplotlib():
+    sources = sorted(Path(ecnf_tpu_torch.__file__).parent.rglob("*.py"))
+    assert len(sources) >= 38
+    pattern = re.compile(r"^\s*(import|from)\s+(h5py|matplotlib|jax|ecnf_tpu)\b", re.MULTILINE)
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert offenders == []

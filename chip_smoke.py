@@ -118,6 +118,22 @@ Phases, one or more lines each:
    ``--local`` ALDP and DW4 programs on the card (evaluations at -1 and
    9), whose edge widths of 4 and 16 the kernel takes zero-padded, each
    padded launch of one field evaluation held to the plain version.
+15. serving a JAX checkpoint: (a) the committed Orbax checkpoint that
+   the JAX package wrote (``tests/torch_fixtures/jax_aldp``, ALDP width)
+   read by `training.orbax.read_orbax_tree` in this process, which has
+   no JAX: every leaf's dtype, shape and SHA-256 against its
+   ``expected.json``, with the read time and the zstd decoder's rate;
+   (b) ``python -m ecnf_tpu_torch.score --config aldp_soak.yaml
+   --checkpoint-dir ... --features arange`` with the f32, exact-trace,
+   fixed-step rk4 overrides on the 16 frames beside it, raw and
+   ``--ema``: log p within ``LOGQ_LIMIT`` of JAX's numbers, the EMA's
+   apart from the raw, edge launches counted, the first call timed apart
+   from a second; the edge kernel at that shape (K=63, B=16, N=22, U=64,
+   L=2, f32) on one field evaluation's inputs against its plain version,
+   timed against its bound; (c) ``python -m ecnf_tpu_torch.sample`` from
+   that checkpoint with ``--ema`` and the config's own solve (adaptive
+   Dopri5, bf16), Hutchinson, 256 samples in batches of 128: every sample
+   and log q finite, the first batch timed apart.
 
 Bounds: the larger of the bytes a kernel must move (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
@@ -281,6 +297,11 @@ ALDP_CAPTURE_AT = ALDP_BLOCKS * 20
 # edge kernel takes zero-padded), cut to evaluations at -1 and 9.
 ALDP_LOCAL_CUTS = ("training.n_eval=1",)
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 and TF32 tensor-core FLOP/s.
+# Phase 15: the JAX checkpoint that `tests/torch_make_jax_checkpoint.py` writes.
+JAX_FIXTURE = Path("tests") / "torch_fixtures" / "jax_aldp"
+SERVE_EDGE = dict(K=63, B=16, N=22, U=64, L=2)  # f32 exact trace: (N - 1) * 3 columns
+SERVE_SAMPLES, SERVE_BATCH = 256, 128
+
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
@@ -1341,6 +1362,36 @@ def _clone_args(args) -> tuple:
     return tuple([t.clone() for t in a] if isinstance(a, (list, tuple)) else a.clone() for a in args)
 
 
+class EdgeCapture:
+    """While active, keeps copies of the arguments of edge launches
+    ``capture_at`` .. ``capture_at + blocks - 1`` (the EGNN blocks of one
+    field evaluation; none when ``capture_at`` is None) in ``captured``.
+    The kernel's wrapper counts its launches on whatever its module name
+    holds, here the capturing function; the count goes back to the wrapper
+    after."""
+
+    def __init__(self, et, capture_at=None, blocks: int = 1):
+        self.et, self.capture_at, self.blocks = et, capture_at, blocks
+        self.captured = []
+
+    def __enter__(self):
+        self.orig = orig = self.et.edge_tangent
+        at, blocks, captured = self.capture_at, self.blocks, self.captured
+
+        def capturing(*args, **kwargs):
+            if at is not None and at <= capturing.launch_count < at + blocks:
+                captured.append(_clone_args(args))
+            return orig(*args, **kwargs)
+
+        capturing.launch_count = 0
+        self.capturing = self.et.edge_tangent = capturing
+        return self
+
+    def __exit__(self, *exc):
+        self.et.edge_tangent = self.orig
+        self.orig.launch_count += self.capturing.launch_count
+
+
 def _run_program(example, config_name, common, setup, sampling, et, overrides, blocks,
                  capture_at=None, local_extra=None, **run_kwargs) -> dict:
     """One run of an experiment entry point's ``run`` (``example.run(cfg,
@@ -1355,7 +1406,7 @@ def _run_program(example, config_name, common, setup, sampling, et, overrides, b
     the ``blocks - 1`` after it: the EGNN blocks of one field evaluation."""
     cfg = common.load_experiment_config(str(common.CONFIG_DIR / config_name),
                                         local_extra is not None, overrides, local_extra or ())
-    epochs, evals, plots, captured, epoch_args = [], [], [], [], []
+    epochs, evals, plots, epoch_args = [], [], [], []
     orig_epoch = _timed(setup, "epoch", epochs, cuda_events=True)
     timed_epoch = setup.epoch
 
@@ -1366,28 +1417,16 @@ def _run_program(example, config_name, common, setup, sampling, et, overrides, b
     setup.epoch = keeping
     orig_eval = _timed(setup, "evaluate", evals, cuda_events=False)
     orig_sample = _timed(setup, "sample_cnf", plots, cuda_events=False)
-    orig_edge = et.edge_tangent
-
-    def capturing(*args, **kwargs):
-        if capture_at is not None and capture_at <= capturing.launch_count < capture_at + blocks:
-            captured.append(_clone_args(args))
-        return orig_edge(*args, **kwargs)
-
-    # The kernel's wrapper counts its launches on whatever its module name
-    # holds, here `capturing`; the count goes back to the wrapper after.
-    capturing.launch_count = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    et.edge_tangent = capturing
     t0 = time.perf_counter()
     try:
-        with SolveRecorder(sampling) as rec:
+        with EdgeCapture(et, capture_at, blocks) as capture, SolveRecorder(sampling) as rec:
             logger, state = example.run(cfg, device="cuda", **run_kwargs)
     finally:
         setup.epoch, setup.evaluate, setup.sample_cnf = orig_epoch, orig_eval, orig_sample
-        et.edge_tangent = orig_edge
-        orig_edge.launch_count += capturing.launch_count
+    captured = capture.captured
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = rec.rows()
@@ -1870,6 +1909,131 @@ def phase_aldp_program(et, card: str) -> dict:
     return dict(edge=dict(ms=ms, plain_ms=plain_ms, abs_err=abs_err, **b), share=share)
 
 
+def leaf_digests(tree, path=()) -> dict:
+    """``{"/"-joined key path: {dtype, shape, sha256}}`` of a tree that
+    `read_orbax_tree` gives back (its None leaves left out)."""
+    import hashlib
+
+    if isinstance(tree, (dict, list)):
+        out = {}
+        for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+            out.update(leaf_digests(v, path + (str(k),)))
+        return out
+    if tree is None:
+        return {}
+    return {"/".join(path): {"dtype": tree.dtype.str, "shape": list(tree.shape),
+                             "sha256": hashlib.sha256(tree.tobytes()).hexdigest()}}
+
+
+def phase_jax_checkpoint(et, card: str) -> dict:
+    """Serving a checkpoint the JAX package wrote: (a) the Orbax reader;
+    (b) ``score`` raw and ``--ema`` against JAX's log p, and the edge kernel
+    at that shape; (c) ``sample --ema`` with the config's adaptive bf16
+    solve."""
+    import numpy as np
+
+    from ecnf_tpu_torch import sample, score
+    from ecnf_tpu_torch.training.ocdbt import OcdbtStore
+    from ecnf_tpu_torch.training.orbax import read_orbax_tree
+    from ecnf_tpu_torch.utils import zstd
+
+    start = time.perf_counter()
+    fixture = Path(__file__).resolve().parent / JAX_FIXTURE
+    expected = json.loads((fixture / "expected.json").read_text())
+    checkpoint = fixture / expected["checkpoint"]
+
+    # (a) the reader, in a process without JAX.
+    check("jax" not in sys.modules, "(a) JAX is loaded in this process")
+    t0 = time.perf_counter()
+    tree = read_orbax_tree(str(checkpoint))
+    read_s = time.perf_counter() - t0
+    digests = leaf_digests(tree)
+    check(digests == expected["leaves"], "(a) the leaves differ from expected.json")
+    store = OcdbtStore(str(checkpoint))
+    chunks = [store.read(k) for k in store.keys() if not k.endswith(b".zarray")]
+    t0 = time.perf_counter()
+    decoded = sum(len(zstd.decompress(c)) for c in chunks)
+    decode_s = time.perf_counter() - t0
+    rate = decoded / decode_s / 1e6
+    print(f"[jax-ckpt] (a) read_orbax_tree({JAX_FIXTURE / expected['checkpoint']}): "
+          f"{len(digests)} leaves, each dtype, shape and SHA-256 as in expected.json; "
+          f"{read_s * 1e3:.1f} ms (host clock); zstd: {len(chunks)} chunk frames, "
+          f"{sum(map(len, chunks))} bytes -> {decoded} bytes in {decode_s * 1e3:.1f} ms, "
+          f"{rate:.2f} MB/s decoded; on {card}", flush=True)
+
+    # (b) score, raw and --ema, against JAX's numbers.
+    config = str(Path(__file__).resolve().parent / expected["config"])
+    argv = ["--config", config, "--checkpoint-dir", str(fixture / "model_checkpoints"),
+            "--features", "arange", "--data", str(fixture / "frames.npy"),
+            "--batch-size", str(SERVE_EDGE["B"]), "--device", "cuda", *expected["score_overrides"]]
+    blocks = 3
+    results, launched = {}, {}
+    for name, extra in (("params", []), ("params, again", []), ("ema_params", ["--ema"])):
+        zero_counts()
+        with EdgeCapture(et, 0 if name == "params" else None, blocks) as capture:
+            out = score.main(argv + extra)
+        launched[name] = counts()
+        results[name] = out
+        if name == "params":
+            captured = capture.captured
+        key = name.split(",")[0]
+        ref = np.asarray(expected["log_p"][key])
+        rel = float(np.abs(out["log_p"] - ref).max() / np.abs(ref).max())
+        print(f"[jax-ckpt] (b) score {' '.join(expected['score_overrides'])} {' '.join(extra)}: "
+              f"log p {', '.join(f'{v:.4f}' for v in out['log_p'][:4])} ..; JAX "
+              f"{', '.join(f'{v:.4f}' for v in ref[:4])} ..; max rel {rel:.3e} (limit "
+              f"{LOGQ_LIMIT:g}); {launched[name]['edge_tangent']} edge launches; "
+              f"{out['first_batch_seconds']:.3f} s for the batch of {len(ref)}", flush=True)
+        check(rel <= LOGQ_LIMIT and np.isfinite(out["log_p"]).all(), f"(b) {name}: rel {rel:.3e}")
+        check(launched[name]["edge_tangent"] > 0 and launched[name]["egcl"] == 0
+              and launched[name]["fused_trace"] == 0, f"(b) {name}: launches {launched[name]}")
+    gap = float(np.abs(results["ema_params"]["log_p"] - results["params"]["log_p"]).max())
+    check(gap > 2 * LOGQ_LIMIT * float(np.abs(results["params"]["log_p"]).max()),
+          f"(b) --ema changes log p by only {gap:.3e}")
+    first_s, steady_s = (results[n]["first_batch_seconds"] for n in ("params", "params, again"))
+    print(f"[jax-ckpt] (b) --ema moves log p by up to {gap:.4f}; score's batch of 16: first call "
+          f"{first_s:.3f} s (CUDA start-up in it), the same call again {steady_s:.3f} s "
+          f"({16 / steady_s:.1f} configurations/s); on {card}", flush=True)
+
+    # The edge kernel at the serving shape, on one field evaluation's inputs.
+    check(len(captured) == blocks, f"(b) captured {len(captured)} launches")
+    K, B, N, U, L = (SERVE_EDGE[k] for k in ("K", "B", "N", "U", "L"))
+    for i, a in enumerate(captured):
+        check(tuple(a[0].shape) == (K, B, N, U) and a[0].dtype == torch.float32 and len(a[3]) == L,
+              f"(b) block {i} a_t {tuple(a[0].shape)} {a[0].dtype}")
+        abs_err, rel = edge_errors(et.edge_tangent(*a), et.edge_tangent_reference(*a))
+        check(math.isfinite(rel) and rel <= EDGE_LIMITS[torch.float32],
+              f"(b) serving edge_tangent block {i}: rel error {rel:.3e}")
+    a = captured[0]
+    out = et.edge_tangent(*a)
+    abs_err, rel = edge_errors(out, et.edge_tangent_reference(*a))
+    ms = cuda_ms(lambda: et.edge_tangent(*a), 50)
+    plain_ms = cuda_ms(lambda: et.edge_tangent_reference(*a), 50)
+    b = bound(edge_flop(B * N * N, K, L, U), nbytes(a, out), TF32_FLOPS, products=3)
+    print(f"[jax-ckpt] (b) edge_tangent {SERVE_EDGE} float32, block 0 of the first field "
+          f"evaluation: max_abs_err={abs_err:.3e} rel={rel:.3e} (limit "
+          f"{EDGE_LIMITS[torch.float32]:.0e}); kernel {ms * 1e3:.1f} us, plain "
+          f"{plain_ms * 1e3:.1f} us, {rate_line(b, ms)}; on {card}", flush=True)
+
+    # (c) sample from the checkpoint's EMA with the config's own solve.
+    zero_counts()
+    out = sample.main(["--config", config, "--checkpoint-dir", str(fixture / "model_checkpoints"),
+                       "--ema", "--features", "arange", "--n-nodes", str(N), "--with-log-prob",
+                       "--approx", "--n-samples", str(SERVE_SAMPLES), "--batch-size",
+                       str(SERVE_BATCH), "--device", "cuda"])
+    sample_launches = counts()
+    check(np.isfinite(out["samples"]).all() and np.isfinite(out["log_q"]).all(),
+          "(c) non-finite samples or log q")
+    check(sample_launches["edge_tangent"] > 0, f"(c) launches {sample_launches}")
+    print(f"[jax-ckpt] (c) sample --ema (adaptive Dopri5, bfloat16, Hutchinson): "
+          f"{SERVE_SAMPLES} samples, all finite, mean log q {float(out['log_q'].mean()):.4f}; "
+          f"first batch of {SERVE_BATCH} {out['first_batch_seconds']:.2f} s, steady "
+          f"{out['steady_per_second']:.1f} samples/s; {sample_launches['edge_tangent']} edge "
+          f"launches; phase {time.perf_counter() - start:.1f} s; on {card}", flush=True)
+    return dict(edge=dict(ms=ms, plain_ms=plain_ms, abs_err=abs_err, **b),
+                launches=launched["params"]["edge_tangent"], read_s=read_s, rate=rate)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
@@ -1910,6 +2074,7 @@ def main() -> None:
     phase_training_program(et, card)
     phase_qm9_program(et, card)
     phase_aldp_program(et, card)
+    phase_jax_checkpoint(et, card)
 
     # Per kernel, its main-path shapes: the LJ13 structured solve's bf16
     # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches)

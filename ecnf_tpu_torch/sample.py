@@ -5,14 +5,30 @@ samples by integrating the flow with a fixed-step solver (``--method rk4``
 or ``dopri5`` at ``--step-size``) or with adaptive Dopri5 (``--method
 adaptive`` at ``--rtol`` / ``--atol``), optionally carries the exact (or
 Hutchinson) log-density along the solve, and writes an ``[n, n_nodes,
-dim]`` ``.npy`` (and the ``[n]`` log q with ``--log-prob-output``).  Weights come from ``--params-npz`` (a flax
-parameter tree saved with ``numpy.savez`` under ``"/"``-joined paths, see
-`ecnf_tpu_torch.convert`) or, without it, from the seeded init.  Node
-features are all zero (DW4, LJ13, QM9) or each atom's index
+dim]`` ``.npy`` (and the ``[n]`` log q with ``--log-prob-output``).
+
+Two ways to name the model:
+
+- the reference's: ``--checkpoint-dir`` serves the latest ``state_%08i``
+  under it, a checkpoint of either package (the JAX package's Orbax
+  directories included), with ``--ema`` its EMA parameters; the network
+  and the solve come from ``--config`` (default
+  ``examples/configs/lj13.yaml``) and its ``key=value`` overrides, as in
+  training (``training.use_fixed_step_size``, ``training.ode_method``,
+  ``training.hutchinson_probes``);
+- without a config: ``--params-npz`` (a flax parameter tree saved with
+  ``numpy.savez`` under ``"/"``-joined paths, see
+  `ecnf_tpu_torch.convert`) or the seeded init, with the network and the
+  solve given as flags.
+
+Node features are all zero (DW4, LJ13, QM9) or each atom's index
 (``--features arange``, ALDP).  The first batch, which carries CUDA's
 start-up and the kernels' builds, is timed apart from the steady rate.
 
 Usage:
+    python -m ecnf_tpu_torch.sample --config examples/configs/lj13.yaml \
+        --checkpoint-dir runs/lj13/model_checkpoints [--ema] --n-nodes 13 \
+        --n-samples 96 --with-log-prob [key=value ...]
     python -m ecnf_tpu_torch.sample --n-nodes 13 --n-samples 96 \
         --batch-size 48 --method {rk4,dopri5,adaptive} --with-log-prob \
         --dtype bfloat16 [--rtol 1e-5 --atol 1e-5] [--fused-trace] \
@@ -20,8 +36,9 @@ Usage:
         [--output samples.npy] [--log-prob-output log_q.npy]
 """
 import argparse
+import copy
 import time
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +46,14 @@ import torch
 from ecnf_tpu_torch.cnf.build import build_cnf
 from ecnf_tpu_torch.cnf.sampling import SolveConfig, sample_and_log_prob_cnf, sample_cnf
 from ecnf_tpu_torch.convert import from_flax
+from ecnf_tpu_torch.examples.common import CONFIG_DIR
+from ecnf_tpu_torch.training.checkpoints import get_latest_checkpoint, restore_serving_params
+from ecnf_tpu_torch.training.config import load_config
+from ecnf_tpu_torch.training.setup import _refuse_unported
+
+# Flags of the config-free route: with --checkpoint-dir the config names these.
+_FLAG_ROUTE = ("params_npz", "dtype", "n_blocks", "mlp_units", "hidden", "time_embedding_dim",
+              "base_scale", "method", "step_size", "rtol", "atol", "hutchinson_probes")
 
 
 def positive_int(text: str) -> int:
@@ -68,6 +93,59 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--base-scale", type=float, default=1.0)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the CPU only when asked for (--device cpu)")
+    p.set_defaults(sigma_min=0.01, checkpoint=None)
+
+
+def add_config_args(p: argparse.ArgumentParser) -> None:
+    """The reference's surface: a checkpoint directory served with its config."""
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="serve the latest state_%%08i under this directory (either package's)")
+    p.add_argument("--config", type=str, default=None,
+                   help="experiment config naming the network and the solve (with "
+                        f"--checkpoint-dir; default {CONFIG_DIR / 'lj13.yaml'})")
+    p.add_argument("--ema", action="store_true",
+                   help="serve the checkpoint's EMA parameters")
+    p.add_argument("overrides", nargs="*", help="dotted config overrides, e.g. "
+                   "training.ode_method=rk4 (with --checkpoint-dir)")
+
+
+def _explicit(parser: argparse.ArgumentParser, argv: Optional[Sequence[str]]) -> List[str]:
+    """The destinations the command line set itself (not by default)."""
+    unset = object()
+    probe = copy.deepcopy(parser)
+    probe.set_defaults(**{dest: unset for dest in vars(parser.parse_args(argv))})
+    return [dest for dest, value in vars(probe.parse_args(argv)).items() if value is not unset]
+
+
+def apply_config(parser: argparse.ArgumentParser, args: argparse.Namespace,
+                 argv: Optional[Sequence[str]]) -> None:
+    """With ``--checkpoint-dir``: the network and the solve from ``--config``
+    (the reference's `examples/sample.py` and `score.py`), and the latest
+    checkpoint as ``args.checkpoint``; a network or solve flag beside it is
+    refused, as is a config option the port does not run
+    (`training.setup._refuse_unported`).  Without it the config's options
+    are refused."""
+    if args.checkpoint_dir is None:
+        if args.config or args.ema or args.overrides:
+            parser.error("--config, --ema and key=value overrides need --checkpoint-dir")
+        return
+    clash = [d for d in _explicit(parser, argv) if d in _FLAG_ROUTE]
+    if clash:
+        flags = " ".join("--" + d.replace("_", "-") for d in clash)
+        parser.error(f"--checkpoint-dir takes the network and the solve from --config; drop {flags}")
+    cfg = load_config(args.config or str(CONFIG_DIR / "lj13.yaml"), overrides=args.overrides)
+    _refuse_unported(cfg)
+    net, training = cfg.flow.network, cfg.training
+    args.n_blocks, args.mlp_units = net.n_blocks_egnn, list(net.mlp_units)
+    args.hidden, args.time_embedding_dim = net.n_invariant_feat_hidden, net.time_embedding_dim
+    args.dtype = net.compute_dtype or "float32"
+    args.sigma_min, args.base_scale = cfg.flow.sigma_min, cfg.flow.base_scale
+    args.method = training.ode_method if training.use_fixed_step_size else "adaptive"
+    args.hutchinson_probes = training.hutchinson_probes
+    args.checkpoint = get_latest_checkpoint(args.checkpoint_dir)
+    if args.checkpoint is None:
+        raise SystemExit(f"no checkpoint under {args.checkpoint_dir}")
+    print(f"restoring {args.checkpoint}")
 
 
 def solve_config(args: argparse.Namespace, fused_trace: bool = False) -> SolveConfig:
@@ -111,12 +189,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-prob-output", type=str, default=None,
                    help="write the [n] log q here (needs --with-log-prob)")
     add_model_args(p)
+    add_config_args(p)
     return p
 
 
 def build_from_args(args: argparse.Namespace, device):
     cnf = build_cnf(
-        n_frames=args.n_nodes, dim=args.dim, sigma_min=0.01,
+        n_frames=args.n_nodes, dim=args.dim, sigma_min=args.sigma_min,
         base_scale=args.base_scale, n_blocks_egnn=args.n_blocks,
         mlp_units=tuple(args.mlp_units), n_invariant_feat_hidden=args.hidden,
         time_embedding_dim=args.time_embedding_dim,
@@ -127,6 +206,12 @@ def build_from_args(args: argparse.Namespace, device):
     if args.params_npz:
         with np.load(args.params_npz) as npz:
             cnf.field.load_state_dict(from_flax(npz))
+    elif args.checkpoint:
+        try:
+            params = restore_serving_params(args.checkpoint, cnf.field.state_dict(), ema=args.ema)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        cnf.field.load_state_dict(params)
     return cnf
 
 
@@ -145,6 +230,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.log_prob_output and not args.with_log_prob:
         parser.error("--log-prob-output needs --with-log-prob")
     device = device_from_args(args, "ecnf_tpu_torch.sample")
+    apply_config(parser, args, argv)
     cnf = build_from_args(args, device)
     cfg = solve_config(args, fused_trace=args.fused_trace)
     n, B = args.n_samples, min(args.batch_size, args.n_samples)

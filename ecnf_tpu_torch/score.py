@@ -3,16 +3,23 @@
 The PyTorch counterpart of `examples/score.py`: reads an ``[n, N, D]``
 ``.npy`` of configurations, removes each one's centre of mass as training
 does, and writes the ``[n]`` log p(x) from the reverse solve t: 1 -> 0,
-exact trace or Hutchinson (``--approx``).  The solve is adaptive Dopri5 at
-the JAX package's defaults (rtol = atol = 1e-5) unless ``--method`` asks
-for fixed steps.  Weights come from ``--params-npz`` (flax parameters
-exported from the JAX package, see `ecnf_tpu_torch.convert`) or, without
-it, from the seeded init; the network flags are those of
-`ecnf_tpu_torch.sample`.  The last batch is zero-padded and the padding
-dropped.  The first batch, which carries CUDA's start-up and the kernels'
-builds, is timed apart from the steady rate.
+exact trace or Hutchinson (``--approx``).  The model is named as in
+`ecnf_tpu_torch.sample`: ``--checkpoint-dir`` (the latest ``state_%08i``
+of either package, ``--ema`` for its EMA parameters) with ``--config`` and
+``key=value`` overrides naming the network and the solve, as the
+reference's `examples/score.py`; or, without a config, ``--params-npz``
+(flax parameters exported from the JAX package, see
+`ecnf_tpu_torch.convert`) or the seeded init, with `sample`'s network
+flags and a solve that is adaptive Dopri5 at the JAX package's defaults
+(rtol = atol = 1e-5) unless ``--method`` asks for fixed steps.  The last
+batch is zero-padded and the padding dropped.  The first batch, which
+carries CUDA's start-up and the kernels' builds, is timed apart from the
+steady rate.
 
 Usage:
+    python -m ecnf_tpu_torch.score --config examples/configs/lj13.yaml \
+        --checkpoint-dir runs/lj13/model_checkpoints --data configs.npy \
+        [--ema] [--output log_p.npy] [--approx] [key=value ...]
     python -m ecnf_tpu_torch.score --data configs.npy --params-npz params.npz \
         [--output log_p.npy] [--batch-size 256] [--approx] \
         [--method {adaptive,rk4,dopri5}] [--features {zeros,arange}]
@@ -26,8 +33,10 @@ import torch
 
 from ecnf_tpu_torch.cnf.sampling import get_log_prob
 from ecnf_tpu_torch.sample import (
+    add_config_args,
     add_model_args,
     add_solve_args,
+    apply_config,
     build_from_args,
     device_from_args,
     node_features,
@@ -44,6 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=positive_int, default=256)
     add_solve_args(p, default_method="adaptive")
     add_model_args(p)
+    add_config_args(p)
     return p
 
 
@@ -64,8 +74,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ``first_batch_seconds``, ``steady_per_second`` (configurations per
     second after the first batch, None for a single batch) and ``device``
     besides printing a summary."""
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     device = device_from_args(args, "ecnf_tpu_torch.score")
+    apply_config(parser, args, argv)
     pos = load_positions(args.data)
     n, args.n_nodes, args.dim = pos.shape
     x = torch.from_numpy(pos.reshape(n, -1))

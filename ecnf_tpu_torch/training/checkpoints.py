@@ -12,8 +12,12 @@ the latest one is found and its iteration parsed the same way) holding:
   count and the state's generator state.
 
 A restore gives back a state from which training continues exactly as an
-uninterrupted run would.  The JAX package's Orbax checkpoints are not
-read.
+uninterrupted run would.
+
+`restore_serving_params` also serves a checkpoint the JAX package wrote
+(`ecnf_tpu/training/checkpoints.py: save_checkpoint`, an Orbax
+``PyTreeCheckpointer`` directory), read by `training.orbax`;
+`get_latest_checkpoint` finds either kind.
 """
 import os
 import re
@@ -25,10 +29,12 @@ import torch
 
 from ecnf_tpu_torch.convert import flatten, from_flax, to_flax
 from ecnf_tpu_torch.training.optim import AdamState
+from ecnf_tpu_torch.training.orbax import METADATA, read_orbax_tree
 from ecnf_tpu_torch.training.state import TrainingState
 
 Tensor = torch.Tensor
 PARAMS, EMA_PARAMS, TRAIN_STATE = "params.npz", "ema_params.npz", "train_state.pt"
+NO_EMA = "checkpoint has no EMA parameters (trained with use_ema=false)"
 
 
 def get_latest_checkpoint(dir_path: str, key: str = "state_") -> Optional[str]:
@@ -85,12 +91,47 @@ def save_checkpoint(checkpoints_dir: str, iteration: int, state: TrainingState) 
     return path
 
 
-def _load_params(path: str, template: Dict[str, Tensor]) -> Dict[str, Tensor]:
-    with np.load(path) as npz:
-        loaded = from_flax(dict(npz))
+def is_orbax_checkpoint(path: str) -> bool:
+    """Whether ``path`` is a checkpoint the JAX package wrote (an Orbax
+    directory with ``_METADATA`` and an OCDBT ``manifest.ocdbt``)."""
+    return os.path.isfile(os.path.join(path, METADATA)) and os.path.isfile(
+        os.path.join(path, "manifest.ocdbt")
+    )
+
+
+def _fit(loaded: Dict[str, Tensor], template: Dict[str, Tensor], path: str) -> Dict[str, Tensor]:
     if set(loaded) != set(template):
         raise ValueError(f"{path} holds other parameters than the model's")
     return {n: loaded[n].to(device=t.device, dtype=t.dtype) for n, t in template.items()}
+
+
+def _load_params(path: str, template: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    with np.load(path) as npz:
+        loaded = from_flax(dict(npz))
+    return _fit(loaded, template, path)
+
+
+def _float_leaves(tree):
+    """bfloat16 leaves (read as their uint16 bits) widened exactly to float32."""
+    if isinstance(tree, dict):
+        return {k: _float_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and tree.dtype == np.uint16:
+        return (tree.astype(np.uint32) << 16).view(np.float32)
+    return tree
+
+
+def _orbax_params(path: str, ema: bool) -> Dict[str, Tensor]:
+    """The flax ``params`` (or ``ema_params``) of a JAX checkpoint as the
+    field's ``state_dict``."""
+    try:
+        tree = read_orbax_tree(path, ("ema_params" if ema else "params",))
+    except KeyError:
+        tree = None
+    if tree is None:
+        if ema:
+            raise ValueError(NO_EMA)
+        raise ValueError(f"{path} holds no parameters")
+    return from_flax(_float_leaves(tree))
 
 
 def restore_checkpoint(path: str, target: TrainingState) -> TrainingState:
@@ -118,14 +159,17 @@ def restore_checkpoint(path: str, target: TrainingState) -> TrainingState:
 def restore_serving_params(
     path: str, params_template: Optional[Dict[str, Tensor]] = None, ema: bool = False
 ) -> Dict[str, Tensor]:
-    """The parameters (``ema=True``: the EMA parameters) of a checkpoint as a
-    ``state_dict`` of the field, on the CPU or on the template's devices.
-    Raises ``ValueError`` for ``ema=True`` on a checkpoint trained without
-    EMA."""
+    """The parameters (``ema=True``: the EMA parameters) of a checkpoint of
+    either package as a ``state_dict`` of the field, on the CPU or on the
+    template's devices and dtypes.  Raises ``ValueError`` for ``ema=True`` on
+    a checkpoint trained without EMA."""
+    if is_orbax_checkpoint(path):
+        loaded = _orbax_params(path, ema)
+        return loaded if params_template is None else _fit(loaded, params_template, path)
     file = os.path.join(path, EMA_PARAMS if ema else PARAMS)
     if not os.path.exists(file):
         if ema:
-            raise ValueError("checkpoint has no EMA parameters (trained with use_ema=false)")
+            raise ValueError(NO_EMA)
         raise FileNotFoundError(file)
     if params_template is not None:
         return _load_params(file, params_template)

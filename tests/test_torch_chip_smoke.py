@@ -20,3 +20,4 @@ def test_chip_smoke_fails_without_cuda():
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
     assert "no CUDA device" in proc.stderr
+

@@ -5,6 +5,11 @@ The CLI saves log q (``--log-prob-output``), serves per-atom node features
 ``[n_nodes, H]`` loads), and reports its first batch apart from the steady
 rate; ``--method adaptive`` solves at `SolveConfig()`.  `build_cnf` builds
 on the card unless the caller asks for the CPU.
+
+With ``--checkpoint-dir`` (and ``--config``, ``--ema``, ``key=value``
+overrides) the CLI serves a checkpoint the JAX package wrote, held to
+what `examples/sample.py` computes from the same base samples (rtol 1e-4
+fixed step, 3e-4 adaptive), and refuses the config-free route's flags.
 """
 import numpy as np
 import pytest
@@ -127,3 +132,93 @@ def test_adaptive_method_matches_sample_and_log_prob_at_solve_config():
     np.testing.assert_array_equal(out["log_q"], log_q.numpy())
     cfg = sample.solve_config(sample.build_parser().parse_args(argv + ["--rtol", "1e-3"]))
     assert cfg == SolveConfig(rtol=1e-3, step_size=0.5)  # SMALL sets --step-size 0.5
+
+
+# --- The reference surface: --config / --checkpoint-dir / --ema / overrides on
+# a checkpoint the JAX package's `save_checkpoint` writes.
+
+from pathlib import Path  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import torch_parity as tp  # noqa: E402
+from ecnf_tpu.cnf import sampling as jax_sampling  # noqa: E402
+from ecnf_tpu.cnf.build import build_cnf as build_jax_cnf  # noqa: E402
+from ecnf_tpu.training import checkpoints as jax_ckpt  # noqa: E402
+from ecnf_tpu.training.config import load_config as jax_load_config  # noqa: E402
+
+LJ13 = str(Path(__file__).resolve().parent.parent / "examples" / "configs" / "lj13.yaml")
+SMALL_CONFIG = [
+    "flow.network.n_blocks_egnn=2", "flow.network.mlp_units=[32,32]",
+    f"flow.network.n_invariant_feat_hidden={tp.H}", f"flow.network.time_embedding_dim={tp.T}",
+    "flow.network.compute_dtype=float32",
+]
+RK4 = ["training.use_fixed_step_size=true", "training.ode_method=rk4"]
+
+
+@pytest.fixture(scope="module")
+def jax_checkpoint_dir(tmp_path_factory):
+    root = tmp_path_factory.mktemp("jax_checkpoints")
+    _, _, state = tp.jax_training_state(use_ema=True, seed=11)
+    jax_ckpt.save_checkpoint(str(root), 9, state)
+    return root
+
+
+def _reference_sample(checkpoint_dir, overrides, ema, x0):
+    """What `examples/sample.py` computes from the base samples ``x0``: the
+    network and the solve from the config, the checkpoint's (EMA) params,
+    the forward solve with the exact trace."""
+    cfg = jax_load_config(LJ13, overrides=overrides)
+    net = cfg.flow.network
+    cnf = build_jax_cnf(
+        n_frames=tp.N, dim=tp.DIM, sigma_min=cfg.flow.sigma_min, base_scale=cfg.flow.base_scale,
+        n_blocks_egnn=net.n_blocks_egnn, mlp_units=tuple(net.mlp_units),
+        n_invariant_feat_hidden=net.n_invariant_feat_hidden,
+        time_embedding_dim=net.time_embedding_dim, n_features=1, stable_mlp=net.stable_mlp,
+        compute_dtype=net.compute_dtype,
+    )
+    B = x0.shape[0]
+    feats = jnp.zeros((B, tp.N), jnp.int32)
+    template = cnf.init(jax.random.PRNGKey(0), jnp.zeros((2, tp.N * tp.DIM)), jnp.zeros(2), feats[:2])
+    latest = jax_ckpt.get_latest_checkpoint(str(checkpoint_dir))
+    params = jax_ckpt.restore_serving_params(latest, template, ema=ema)
+    solve = jax_sampling.SolveConfig(
+        use_fixed_step_size=cfg.training.use_fixed_step_size, method=cfg.training.ode_method,
+        hutchinson_probes=cfg.training.hutchinson_probes,
+    )
+    func = jax_sampling._augmented_field(cnf, params, feats, False, None, solve)
+    x0 = jnp.asarray(x0)
+    y1, _ = jax_sampling._solve(func, jnp.concatenate([x0, jnp.zeros((B, 1))], axis=-1), 0.0, 1.0, solve)
+    return np.asarray(y1[:, :-1]), np.asarray(cnf.log_prob_base(x0) - y1[:, -1])
+
+
+@pytest.mark.parametrize("solve,ema,rtol", [("adaptive", True, 3e-4), ("rk4", False, 1e-4),
+                                            ("rk4", True, 1e-4)])
+def test_checkpoint_dir_samples_match_jax(jax_checkpoint_dir, capsys, solve, ema, rtol):
+    overrides = SMALL_CONFIG + (RK4 if solve == "rk4" else [])
+    argv = ["--checkpoint-dir", str(jax_checkpoint_dir), "--n-nodes", str(tp.N), "--n-samples", "4",
+            "--batch-size", "4", "--with-log-prob", "--seed", "5", "--device", "cpu",
+            *(["--ema"] if ema else []), *overrides]
+    out = sample.main(argv)
+    assert "restoring" in capsys.readouterr().out
+    # The port's base samples: the first draw of the seeded CPU generator.
+    base = build_cnf(n_frames=tp.N, dim=tp.DIM, sigma_min=0.01, base_scale=1.0, n_blocks_egnn=1,
+                     mlp_units=(8,), n_invariant_feat_hidden=8, time_embedding_dim=4, n_features=1,
+                     device="cpu")
+    x0 = base.sample_base((4,), generator=torch.Generator().manual_seed(5)).numpy()
+    x1, log_q = _reference_sample(jax_checkpoint_dir, overrides, ema, x0)
+    np.testing.assert_allclose(out["samples"], x1, atol=1e-4 if solve == "rk4" else 1e-3)
+    np.testing.assert_allclose(out["log_q"], log_q, rtol=rtol)
+
+
+def test_checkpoint_dir_refuses_the_flag_route(jax_checkpoint_dir, tmp_path):
+    path = _npz(tmp_path, n_features=1)
+    base = ["--checkpoint-dir", str(jax_checkpoint_dir), "--n-nodes", str(tp.N), "--n-samples", "2",
+            "--device", "cpu", *SMALL_CONFIG]
+    for extra in (["--params-npz", str(path)], ["--mlp-units", "32", "32"], ["--dtype", "float32"]):
+        with pytest.raises(SystemExit) as exc:
+            sample.main(base + extra)
+        assert exc.value.code == 2
+    with pytest.raises(NotImplementedError, match="network.stable_mlp"):
+        sample.main(base + ["flow.network.stable_mlp=true"])

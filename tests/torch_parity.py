@@ -109,3 +109,27 @@ def make_pair(blocks=2, units=(32, 32), cdt=None, seed=0, n=N, dim=DIM, slow=Fal
 
 def to_torch(*arrays):
     return tuple(torch.from_numpy(np.asarray(a)) for a in arrays)
+
+
+def jax_training_state(use_ema=True, n_features=1, seed=0):
+    """``(jax_cnf, optimizer, state)``: a JAX ``TrainingState`` of
+    `init_training_state` at the small widths (2 blocks of [32, 32]), its
+    params redrawn with ``seed`` and its EMA (``use_ema``) with ``seed + 1``,
+    both with `slow_time`, and Adam's state ``optimizer.init`` of the params."""
+    import optax
+
+    from ecnf_tpu.training.state import init_training_state
+
+    jax_cnf = build_jax_cnf(**dict(cnf_kwargs(2, (32, 32)), n_features=n_features))
+    optimizer = optax.adam(1e-3)
+    x = jnp.zeros((2, N * DIM))
+    feats = jnp.zeros((2, N), jnp.int32)
+    state = init_training_state(jax_cnf, optimizer, jax.random.PRNGKey(seed), x, feats, use_ema)
+    tree = jax.tree_util.tree_map(np.asarray, state.params)
+
+    def redrawn(s):
+        return jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), slow_time(redraw(tree, s)))
+
+    params = redrawn(seed)
+    ema = redrawn(seed + 1) if use_ema else None
+    return jax_cnf, optimizer, state._replace(params=params, ema_params=ema, opt_state=optimizer.init(params))

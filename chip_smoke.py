@@ -301,6 +301,33 @@ ALDP_LOCAL_CUTS = ("training.n_eval=1",)
 JAX_FIXTURE = Path("tests") / "torch_fixtures" / "jax_aldp"
 SERVE_EDGE = dict(K=63, B=16, N=22, U=64, L=2)  # f32 exact trace: (N - 1) * 3 columns
 SERVE_SAMPLES, SERVE_BATCH = 256, 128
+# Phase 16: the options `setup_training` once refused, and Hutch++.  (a) the
+# StableMLP JAX checkpoint (`tests/torch_make_jax_checkpoint.py
+# --stable-mlp`), its log p, Hutch++ and chunked log p within OPTION_REL of
+# JAX's; (b) exact-trace column chunks at the QM9 flagship width (K = 54);
+# (c) Hutch++ against plain Hutchinson at the LJ13 width, 8 JVPs each;
+# (d) remat on the QM9 flagship train step, gradients within REMAT_ATOL of
+# no remat; (e) the matmul precisions on the LJ13 f32 structured solve;
+# (f) the DW4 program with the options set, cut to 2 iterations and one
+# test batch.
+JAX_STABLE_FIXTURE = Path("tests") / "torch_fixtures" / "jax_aldp_stable"
+OPTION_REL = 1e-4
+QM9_CHUNKS = (None, 27, 9, 1)
+HUTCH_DRAWS = 64
+HUTCH_PLAIN, HUTCH_SKETCH, HUTCH_RESID = 8, 2, 4  # 8 = 2 * 2 + 4 JVPs each
+REMAT_MODES = (False, True, "dots")
+REMAT_ATOL = 1e-6
+PRECISIONS = ("float32", "tensorfloat32", "bfloat16")
+# n_eval=0: the one evaluation is at -1, before the profiler starts, so the
+# trace holds the two epochs only.  The evaluation takes fixed rk4 steps
+# and no figure: each field evaluation is four host-bound `torch.func`
+# passes (the value and three chunks of 2), ~65 ms, and adaptive Dopri5
+# takes ~270 of them where rk4 takes 80.
+DW4_OPTION_CUTS = ("training.n_training_iter=2", "training.n_eval=0", "training.n_checkpoints=1",
+                   "training.test_set_size=64", "training.use_fixed_step_size=true",
+                   "training.ode_method=rk4", "training.eval_plots=false",
+                   "flow.network.stable_mlp=true", "training.trace_column_chunk=2",
+                   "training.precision=tensorfloat32")
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -2034,6 +2061,349 @@ def phase_jax_checkpoint(et, card: str) -> dict:
                 launches=launched["params"]["edge_tangent"], read_s=read_s, rate=rate)
 
 
+def estimator_stats(estimates: torch.Tensor, exact: torch.Tensor) -> dict:
+    """``estimates [draws, B]`` of a trace against ``exact [B]``: the mean
+    over samples of each sample's sd over the draws, the mean |bias|, and
+    the largest |bias| in standard errors of the mean of the draws."""
+    est, exact = estimates.double(), exact.double()
+    sd = est.std(dim=0)
+    bias = est.mean(dim=0) - exact
+    z = bias.abs() / (sd / math.sqrt(est.shape[0])).clamp_min(1e-300)
+    return dict(sd=sd.mean().item(), bias=bias.abs().mean().item(), max_z=z.max().item())
+
+
+def trace_kernel_events(path) -> int:
+    """Device kernel events (``"cat": "kernel"``) in a Chrome trace that
+    ``torch.profiler`` exported; raises if the file is not JSON."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    return sum(1 for e in events if str(e.get("cat", "")).lower() == "kernel")
+
+
+def max_gap(a, b) -> float:
+    """Largest |a - b| over two equal-length lists of tensors."""
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+
+def serving_argv(fixture: Path, expected: dict, frames, device, work: Path) -> list:
+    """``score``'s command line serving the JAX fixture with its config and
+    overrides on its ``frames`` (an index of ``frames.npy``, saved under
+    ``work``)."""
+    import numpy as np
+
+    work.mkdir(parents=True, exist_ok=True)
+    np.save(work / "frames.npy", np.load(fixture / "frames.npy")[frames])
+    return ["--config", str(Path(__file__).resolve().parent / expected["config"]),
+            "--checkpoint-dir", str(fixture / "model_checkpoints"), "--features", "arange",
+            "--data", str(work / "frames.npy"), "--device", str(device),
+            *expected["score_overrides"]]
+
+
+def serving_cnf(argv: list, device):
+    """The CNF ``score`` builds from ``argv``, the zero-CoM flat frames of
+    its ``--data`` and their node features."""
+    from ecnf_tpu_torch import sample, score
+
+    parser = score.build_parser()
+    args = parser.parse_args(argv)
+    sample.apply_config(parser, args, argv)
+    pos = score.load_positions(args.data)
+    n, args.n_nodes, args.dim = pos.shape
+    cnf = sample.build_from_args(args, torch.device(device))
+    x = torch.from_numpy(pos.reshape(n, -1)).to(device)
+    return cnf, x, sample.node_features(args, n, device)
+
+
+def _options_serving(card: str) -> None:
+    """(a) the StableMLP checkpoint of the JAX package: score raw and
+    --ema, then Hutch++ on the fixture's draws and chunks of 25."""
+    import numpy as np
+
+    from ecnf_tpu_torch import score
+    from ecnf_tpu_torch.cnf.sampling import SolveConfig, get_log_prob
+
+    fixture = Path(__file__).resolve().parent / JAX_STABLE_FIXTURE
+    expected = json.loads((fixture / "expected.json").read_text())
+    n = len(expected["log_p"]["params"])
+    argv = serving_argv(fixture, expected, slice(None), "cuda",
+                        Path(__file__).resolve().parent / "build" / "options")
+    argv += ["--batch-size", str(n)]
+    for key, extra in (("params", []), ("ema_params", ["--ema"])):
+        zero_counts()
+        out = score.main(argv + extra)
+        launched = counts()
+        rel = rel_err(torch.from_numpy(out["log_p"]).double(),
+                      torch.tensor(expected["log_p"][key], dtype=torch.float64))
+        print(f"[options] (a) score --config {expected['config']} {' '.join(expected['score_overrides'])} "
+              f"{' '.join(extra)} on the StableMLP JAX checkpoint ({n} frames): max rel to JAX's "
+              f"log p {rel:.3e} (limit {OPTION_REL:g}); launches {launched}; "
+              f"{out['seconds']:.2f} s", flush=True)
+        check(rel <= OPTION_REL and np.isfinite(out["log_p"]).all(), f"(a) {key}: rel {rel:.3e}")
+        check(not any(launched.values()), f"(a) the StableMLP route launched {launched}")
+    cnf, x, feats = serving_cnf(argv, "cuda")
+    hpp, chunk = expected["hutchpp"], expected["trace_column_chunk"]
+    fixed = dict(use_fixed_step_size=True, method="rk4")
+    eps = tuple(torch.from_numpy(np.load(fixture / hpp[k])).cuda() for k in ("sketch", "probes"))
+    cases = (
+        ("Hutch++ (sketch 2, probes 4, the fixture's draws)", hpp["log_p"], True, eps,
+         SolveConfig(**fixed, hutchpp_sketch=hpp["hutchpp_sketch"],
+                     hutchinson_probes=hpp["hutchinson_probes"])),
+        (f"exact trace in chunks of {chunk['chunk']}", chunk["log_p"], False, None,
+         SolveConfig(**fixed, trace_column_chunk=chunk["chunk"])),
+    )
+    for name, ref, approx, e, cfg in cases:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = get_log_prob(cnf, x, feats, approx=approx, cfg=cfg, eps=e)[0]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rel = rel_err(out.double().cpu(), torch.tensor(ref, dtype=torch.float64))
+        print(f"[options] (a) {name}: max rel to JAX's log p {rel:.3e} (limit {OPTION_REL:g}); "
+              f"launches {counts()}; {seconds:.2f} s for the {n} frames; on {card}", flush=True)
+        check(rel <= OPTION_REL and bool(torch.isfinite(out).all()), f"(a) {name}: rel {rel:.3e}")
+
+
+def _options_chunks(card: str) -> None:
+    """(b) the f32 exact field evaluation at the QM9 flagship width by
+    column chunks: peak memory and time, each against chunk None."""
+    from ecnf_tpu_torch.ops.divergence import value_and_exact_divergence
+
+    n, units, hidden, blocks, B = 19, (256,) * 4, 32, 5, 64
+    cnf = f32_cnf(n, units, hidden, blocks, seed=31)
+    x, t, feats = field_inputs(n, B, seed=32)
+    basis, offset = cnf.exact_trace_plan()
+    field = lambda xb: cnf.apply(xb, t, feats)  # noqa: E731
+    ref = None
+    with torch.no_grad():
+        value_and_exact_divergence(field, x, None, basis, offset)  # warm-up
+    for chunk in QM9_CHUNKS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.no_grad():
+            start.record()
+            v, div = value_and_exact_divergence(field, x, chunk, basis, offset)
+            end.record()
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ms = start.elapsed_time(end)
+        if ref is None:
+            ref = div
+        rel = rel_err(div, ref)
+        print(f"[options] (b) QM9 width (N={n}, {blocks} blocks of {list(units)}, hidden {hidden}), "
+              f"f32 exact field evaluation, B={B}, K={basis.shape[0]}, trace_column_chunk={chunk}: "
+              f"{ms:.2f} ms (CUDA events), peak device memory {peak:.2f} GB, divergence rel "
+              f"{rel:.3e} to chunk None (limit {OPTION_REL:g}); on {card}", flush=True)
+        check(rel <= OPTION_REL and bool(torch.isfinite(div).all()), f"(b) chunk {chunk}: rel {rel:.3e}")
+        del v, div
+
+
+def _options_hutchpp(card: str) -> None:
+    """(c) Hutch++ (sketch 2, probes 4) against plain Hutchinson (8 probes)
+    at one (x, t) at the LJ13 width: sd and bias over the draws against the
+    exact trace, and ms per field evaluation."""
+    from ecnf_tpu_torch.ops import divergence as div
+
+    n, B = 13, 48
+    D = n * 3
+    cnf = f32_cnf(n, (128,) * 3, 64, 3, seed=41)
+    x, t, feats = field_inputs(n, B, seed=42)
+    field = lambda xb: cnf.apply(xb, t, feats)  # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    with torch.no_grad():
+        exact = div.value_and_exact_divergence(field, x)[1]
+        draws = {
+            "plain Hutchinson, 8 probes": lambda: torch.randn((HUTCH_PLAIN, B, D), generator=gen,
+                                                              device="cuda"),
+            "Hutch++, sketch 2 + probes 4": lambda: (
+                torch.randn((HUTCH_SKETCH, B, D), generator=gen, device="cuda"),
+                torch.randn((HUTCH_RESID, B, D), generator=gen, device="cuda")),
+        }
+        estimators = {
+            "plain Hutchinson, 8 probes": lambda e: div.value_and_multi_probe_hutchinson(field, x, e),
+            "Hutch++, sketch 2 + probes 4": lambda e: div.value_and_hutchpp_divergence(field, x, *e),
+        }
+        for name, draw in draws.items():
+            est = torch.stack([estimators[name](draw())[1] for _ in range(HUTCH_DRAWS)])
+            stats = estimator_stats(est, exact)
+            e = draw()
+            ms = cuda_ms(lambda: estimators[name](e), 5)
+            print(f"[options] (c) LJ13 width (3 blocks of [128]*3, hidden 64, f32, random weights), "
+                  f"B={B}, one (x, t): {name}: over {HUTCH_DRAWS} draws the per-sample sd "
+                  f"{stats['sd']:.4f}, mean |bias| {stats['bias']:.4f} (largest {stats['max_z']:.2f} "
+                  f"standard errors), exact trace mean {exact.mean().item():.4f}; {ms:.2f} ms a field "
+                  f"evaluation (CUDA events); on {card}", flush=True)
+            check(bool(torch.isfinite(est).all()) and stats["max_z"] < 6.0,
+                  f"(c) {name}: bias {stats['max_z']:.2f} standard errors")
+        exact_ms = cuda_ms(lambda: div.value_and_exact_divergence(field, x), 5)
+    print(f"[options] (c) the exact trace (D={D} columns) {exact_ms:.2f} ms a field evaluation",
+          flush=True)
+
+
+def _options_remat(card: str) -> None:
+    """(d) remat_blocks on the QM9 flagship train step (B=256, bf16,
+    microbatch 1): gradients against no remat, peak memory, ms a step."""
+    import numpy as np
+
+    from ecnf_tpu_torch.cnf.build import build_cnf
+    from ecnf_tpu_torch.training import optim
+    from ecnf_tpu_torch.training import state as state_mod
+
+    q = QM9_TRAIN
+    B, D = q["batch"], q["n"] * 3
+    rng = np.random.default_rng(51)
+    data = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32)).cuda()
+    feats = torch.zeros((B, q["n"]), dtype=torch.int64, device="cuda")
+    gen = torch.Generator().manual_seed(52)
+    x0 = torch.randn((B, q["n"], 3), generator=gen)
+    x0 = (x0 - x0.mean(dim=1, keepdim=True)).reshape(B, D).cuda()
+    t = torch.rand((B,), generator=gen).cuda()
+    grads, params = {}, None
+    for mode in REMAT_MODES:
+        cnf = build_cnf(n_frames=q["n"], dim=3, sigma_min=1e-6, base_scale=2.0,
+                        n_blocks_egnn=q["blocks"], mlp_units=q["units"],
+                        n_invariant_feat_hidden=q["hidden"], time_embedding_dim=8, n_features=1,
+                        compute_dtype="bfloat16", remat_blocks=mode, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+        if params is None:
+            params = {k: v.detach().clone() for k, v in cnf.field.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        g, loss = state_mod.loss_and_grads(cnf, params, data, feats, x0=x0, t=t)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        grads[mode] = g + [loss]
+        opt = optim.build_optimizer(1e-4)
+        st = state_mod.init_training_state(cnf, opt, torch.Generator(device="cuda").manual_seed(0),
+                                           use_ema=True)
+        update = state_mod.make_update_fn(cnf, opt, use_ema=True)
+        box = {"st": st}
+
+        def step():
+            box["st"], _ = update(box["st"], data, feats)
+
+        ms = cuda_ms(step, 5)
+        gap = max_gap(grads[mode], grads[False])
+        print(f"[options] (d) QM9 flagship train step (B={B}, {q['blocks']} blocks of "
+              f"{list(q['units'])}, bf16, microbatch 1, EMA), remat_blocks={mode!r}: {ms:.2f} ms a "
+              f"step (CUDA events), peak device memory of the gradient {peak:.2f} GB, gradient and "
+              f"loss max |diff| to no remat {gap:.3e} (limit {REMAT_ATOL:.0e}); on {card}", flush=True)
+        check(gap <= REMAT_ATOL, f"(d) remat_blocks={mode!r}: gradient gap {gap:.3e}")
+        del cnf, st, box, update
+        torch.cuda.empty_cache()
+
+
+def _options_precision(card: str) -> None:
+    """(e) training.precision on the LJ13 f32 structured solve (rk4 0.05,
+    B=48, the edge kernel's launches counted): log q against float32."""
+    from ecnf_tpu_torch.cnf.sampling import SolveConfig, sample_and_log_prob_cnf
+    from ecnf_tpu_torch.training.setup import set_matmul_precision
+
+    cnf = f32_cnf(13, (128,) * 3, 64, 3, seed=61)
+    feats = torch.zeros((48, 13), dtype=torch.int64, device="cuda")
+    x0 = cnf.sample_base((48,), generator=torch.Generator().manual_seed(62))
+    cfg = SolveConfig(use_fixed_step_size=True, step_size=0.05, method="rk4")
+    ref = None
+    try:
+        for name in PRECISIONS:
+            set_matmul_precision(name)
+            out = {}
+
+            def solve():
+                out["log_q"] = sample_and_log_prob_cnf(cnf, 48, feats, cfg=cfg, x0=x0)[1]
+
+            zero_counts()
+            solve()
+            launched = counts()["edge_tangent"]
+            ms = cuda_ms(solve, 1)
+            log_q = out["log_q"]
+            if ref is None:
+                ref = log_q
+            gap = (log_q - ref).abs().max().item()
+            print(f"[options] (e) training.precision={name} (torch "
+                  f"{torch.get_float32_matmul_precision()}, allow_tf32="
+                  f"{torch.backends.cuda.matmul.allow_tf32}): LJ13 f32 structured rk4 solve, B=48, "
+                  f"{launched} edge launches, {ms:.1f} ms a solve (CUDA events), log q max |diff| to "
+                  f"float32 {gap:.3e} (mean |log q| {log_q.abs().mean().item():.3f}); on {card}",
+                  flush=True)
+            check(bool(torch.isfinite(log_q).all()) and launched == RK4_LAUNCHES,
+                  f"(e) {name}: launches {launched}")
+    finally:
+        set_matmul_precision("float32")
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32, "(e) precision not restored")
+
+
+def _options_program(card: str) -> None:
+    """(f) the DW4 program at dw4.yaml's width, 2 iterations, with
+    stable_mlp, trace_column_chunk=2, profile_dir and precision
+    tensorfloat32; then use_64_bit refused."""
+    from ecnf_tpu_torch.examples import common, dw4
+    from ecnf_tpu_torch.targets import data
+    from ecnf_tpu_torch.training import setup
+
+    root = Path(__file__).resolve().parent / "build"
+    data_dir, run_dir = root / "dw4" / "data", root / "dw4_options"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    if not (data_dir / data.DW4_CACHE).exists():
+        data._generate_dw4_data(data_dir / data.DW4_CACHE, "cuda")
+    profile = run_dir / "profile"
+    cuts = list(DW4_OPTION_CUTS) + [f"training.save_dir={run_dir}", f"training.profile_dir={profile}"]
+    cfg = common.load_experiment_config(str(common.CONFIG_DIR / "dw4.yaml"), False, cuts, ())
+    calls = []
+    orig = _timed(setup, "evaluate", calls, cuda_events=False)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        logger, _ = dw4.run(cfg, device="cuda", data_dir=data_dir)
+    finally:
+        setup.evaluate = orig
+        precision = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+    wall = time.perf_counter() - t0
+    launched = counts()
+    h = logger.history
+    trace = profile / "trace.json"
+    kernels = trace_kernel_events(trace) if trace.exists() else 0
+    print(f"[options] (f) dw4.yaml with {' '.join(cuts)}: iterations {sorted(set(h['iteration']))}, "
+          f"{len(h['loss'])} losses {h['loss'][0]:.4f} .. {h['loss'][-1]:.4f}, test_log_lik "
+          f"{', '.join(f'{v:.4f}' for v in h['test_log_lik'])}, eval_ode_steps "
+          f"{', '.join(f'{v:.1f}' for v in h['eval_ode_steps'])}; seconds per evaluation "
+          f"{', '.join(f'{v:.2f}' for v in calls)}; precision during the run {precision}; "
+          f"launches {launched}; {trace.name}: {trace.stat().st_size if trace.exists() else 0} "
+          f"bytes, {kernels} CUDA kernel events; {wall:.1f} s wall; on {card}", flush=True)
+    check(precision == "high", f"(f) training.precision=tensorfloat32 gave {precision}")
+    check(len(h["loss"]) == 2 * DW4_STEPS_PER_EPOCH and all(math.isfinite(v) for v in h["loss"]),
+          f"(f) losses {h['loss']}")
+    check(len(h["test_log_lik"]) == 1 and all(math.isfinite(v) for v in h["test_log_lik"]),
+          f"(f) test_log_lik {h['test_log_lik']}")
+    check(kernels > 0, f"(f) the trace {trace} holds no CUDA kernel events")
+    check(not any(launched.values()), f"(f) the StableMLP program launched {launched}")
+    refused = common.load_experiment_config(str(common.CONFIG_DIR / "dw4.yaml"), False,
+                                            cuts + ["training.use_64_bit=true"], ())
+    try:
+        dw4.run(refused, device="cuda", data_dir=data_dir)
+    except NotImplementedError as e:
+        print(f"[options] (f) training.use_64_bit=true refused: {str(e)[:160]}..", flush=True)
+        check("ode.py:237" in str(e), f"(f) the refusal gives no reason: {e}")
+    else:
+        check(False, "(f) training.use_64_bit=true ran")
+
+
+def phase_options(card: str) -> None:
+    """Phase 16: the options `setup_training` once refused, and Hutch++."""
+    start = time.perf_counter()
+    check(torch.get_float32_matmul_precision() == "highest", "phase 16 needs precision highest")
+    for part in (_options_serving, _options_chunks, _options_hutchpp, _options_remat,
+                 _options_precision, _options_program):
+        t0 = time.perf_counter()
+        part(card)
+        print(f"[options] {part.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[options] phase {time.perf_counter() - start:.1f} s; on {card}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
@@ -2075,6 +2445,7 @@ def main() -> None:
     phase_qm9_program(et, card)
     phase_aldp_program(et, card)
     phase_jax_checkpoint(et, card)
+    phase_options(card)
 
     # Per kernel, its main-path shapes: the LJ13 structured solve's bf16
     # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches)

@@ -3,7 +3,7 @@ EGNN vector field (`build_cnf`), and diagonal Gaussian base + plain MLP
 field (`build_mlp_cnf`, the 2-D MoG)."""
 import math
 from functools import partial
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -11,7 +11,7 @@ from torch import nn
 from ecnf_tpu_torch.cnf.base import DiagGaussian, ZeroCoMGaussian
 from ecnf_tpu_torch.cnf.core import FlowMatchingCNF, optimal_transport_conditional_vf
 from ecnf_tpu_torch.models.egnn import EGNN
-from ecnf_tpu_torch.models.mlp import ConcatDense
+from ecnf_tpu_torch.models.mlp import ConcatDense, LayerNorm
 from ecnf_tpu_torch.models.vector_net import VectorNet
 from ecnf_tpu_torch.ops.divergence import zero_com_trace_basis
 from ecnf_tpu_torch.ops.egcl import egnn_weights
@@ -27,7 +27,8 @@ class FlatEGNNField(nn.Module):
 
     ``x [B, N*D]`` positions, ``t [B]`` times and integer node features
     ``[B, N]`` -> flat field ``[B, N*D]``.  ``embed`` is flax's ``Embed_0``
-    and ``egnn`` its ``EGNN_0``.
+    and ``egnn`` its ``EGNN_0``; ``stable_mlp`` and ``remat_blocks`` are
+    `EGNN`'s.
     """
 
     def __init__(
@@ -40,6 +41,8 @@ class FlatEGNNField(nn.Module):
         n_blocks_egnn: int,
         mlp_units: Sequence[int],
         compute_dtype: Optional[str] = None,
+        stable_mlp: bool = False,
+        remat_blocks: Union[bool, str] = False,
     ):
         super().__init__()
         if compute_dtype not in _DTYPES:
@@ -55,6 +58,8 @@ class FlatEGNNField(nn.Module):
             n_invariant_feat_hidden=n_invariant_feat_hidden,
             time_embedding_dim=time_embedding_dim,
             compute_dtype=self.compute_dtype,
+            stable_mlp=stable_mlp,
+            remat_blocks=remat_blocks,
         )
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -65,6 +70,8 @@ class FlatEGNNField(nn.Module):
             for module in self.modules():
                 if isinstance(module, ConcatDense):
                     module.reset_parameters(generator)
+                elif isinstance(module, LayerNorm):
+                    module.reset_parameters()
             self.egnn.final_scaling.fill_(1.0)
 
     def forward(self, positions: torch.Tensor, time: torch.Tensor, node_features: torch.Tensor) -> torch.Tensor:
@@ -94,7 +101,9 @@ def build_cnf(
     n_invariant_feat_hidden: int,
     time_embedding_dim: int,
     n_features: int,
+    stable_mlp: bool = False,
     compute_dtype: Optional[str] = None,
+    remat_blocks: Union[bool, str] = False,
     device=None,
     generator: Optional[torch.Generator] = None,
 ) -> FlowMatchingCNF:
@@ -104,7 +113,11 @@ def build_cnf(
     initial distributions) and then moved to ``device``: the CUDA card
     unless the caller names another (``device="cpu"``); without a card that
     default raises.  ``compute_dtype="bfloat16"`` runs the EGNN's MLPs in
-    bf16; parameters and geometry stay f32.
+    bf16; parameters and geometry stay f32.  ``stable_mlp`` builds the
+    MLPs as `StableMLP`s; as in JAX the CNF then has neither the
+    structured tangent nor the fused trace, and its solves take the
+    ``torch.func`` routes.  ``remat_blocks`` (False, True or "dots")
+    recomputes the EGCL blocks in backward passes (`models/egnn.py`).
     """
     device = resolve_device(device)
     base = ZeroCoMGaussian(n_nodes=n_frames, dim=dim, scale=base_scale)
@@ -117,6 +130,8 @@ def build_cnf(
         n_blocks_egnn=n_blocks_egnn,
         mlp_units=tuple(mlp_units),
         compute_dtype=compute_dtype,
+        stable_mlp=stable_mlp,
+        remat_blocks=remat_blocks,
     )
     net.reset_parameters(generator)
     net = net.to(device).eval()
@@ -131,16 +146,20 @@ def build_cnf(
     def exact_trace_plan():
         return com_basis, -dim * net.egnn.final_scaling.detach()
 
-    def tangent(x, t, features, basis, trace_offset=None, use_kernel=True, weights=None):
-        return egnn_value_and_trace(
-            net, x, t, features, basis, trace_offset=trace_offset,
-            use_kernel=use_kernel, weights=weights,
-        )
+    # The hand-linearised tangent and the fused forward + exact-divergence
+    # kernel (`ops/fused_trace.py`, constant width only) are written for
+    # the plain MLP EGNN, as in the JAX package.
+    tangent = tangent_weights = fused = fused_weights = None
+    if not stable_mlp:
 
-    # Fused forward + exact-divergence kernel (`ops/fused_trace.py`), only
-    # for the constant-width MLP EGNN, as in the JAX package.
-    fused = fused_weights = None
-    if len(set(mlp_units)) == 1:
+        def tangent(x, t, features, basis, trace_offset=None, use_kernel=True, weights=None):
+            return egnn_value_and_trace(
+                net, x, t, features, basis, trace_offset=trace_offset,
+                use_kernel=use_kernel, weights=weights,
+            )
+
+        tangent_weights = partial(trace_weights, net)
+    if not stable_mlp and len(set(mlp_units)) == 1:
 
         def fused(x, t, features, weights=None):
             return egnn_value_and_div_fused(net, x, t, features, weights=weights)
@@ -157,7 +176,7 @@ def build_cnf(
         sample_and_log_prob_base=partial(base.sample_and_log_prob, device=device),
         exact_trace_plan=exact_trace_plan,
         tangent_value_and_div=tangent,
-        trace_weights=partial(trace_weights, net),
+        trace_weights=tangent_weights,
         fused_value_and_div=fused,
         fused_weights=fused_weights,
     )

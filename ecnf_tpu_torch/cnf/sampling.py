@@ -15,6 +15,7 @@ from ecnf_tpu_torch.cnf.core import FlowMatchingCNF
 from ecnf_tpu_torch.ops.divergence import (
     value_and_exact_divergence,
     value_and_hutchinson_divergence,
+    value_and_hutchpp_divergence,
     value_and_multi_probe_hutchinson,
 )
 from ecnf_tpu_torch.ops.ode import ODEStats, odeint
@@ -36,8 +37,13 @@ class SolveConfig:
     kernel when the tensors are on a card (False forces the plain version).
     ``fused_trace`` takes the exact trace from the CNF's fused forward +
     full-divergence kernel (`ops/fused_trace.py`) before any other route;
-    Hutchinson solves ignore it.  The JAX ``fused_batch_tile`` and
-    ``fused_interpret`` are TPU settings and are not ported.
+    Hutchinson solves ignore it.  ``trace_column_chunk`` takes the exact
+    trace's columns that many at a time through ``torch.func``, and
+    ``hutchpp_sketch > 0`` makes the approximate trace Hutch++ with that
+    many sketch directions and ``hutchinson_probes`` residual probes
+    (`ops/divergence.py`); either leaves the structured tangent, as in JAX.
+    The JAX ``fused_batch_tile`` and ``fused_interpret`` are TPU settings
+    and are not ported.
     """
 
     use_fixed_step_size: bool = False
@@ -47,7 +53,9 @@ class SolveConfig:
     step_size: float = 0.05
     max_steps: int = 4096
     method: str = "dopri5"
+    trace_column_chunk: Optional[int] = None
     hutchinson_probes: int = 1
+    hutchpp_sketch: int = 0
     use_exact_trace_plan: bool = True
     structured_tangent: bool = True
     structured_tangent_kernel: bool = True
@@ -67,12 +75,20 @@ def _solve(func, y0: Tensor, t0: float, t1: float, cfg: SolveConfig) -> Tuple[Te
     )
 
 
-def _draw_probes(generator, B: int, D: int, cfg: SolveConfig, device) -> Tensor:
-    """One fixed Gaussian probe per sample ``[B, D]``, or ``[K, B, D]``
-    probes when ``cfg.hutchinson_probes > 1``."""
-    shape = (B, D) if cfg.hutchinson_probes == 1 else (cfg.hutchinson_probes, B, D)
+def _draw_probes(generator, B: int, D: int, cfg: SolveConfig, device):
+    """One fixed Gaussian probe per sample ``[B, D]``, ``[K, B, D]`` probes
+    when ``cfg.hutchinson_probes > 1``, or for Hutch++ the pair ``(sketch
+    [hutchpp_sketch, B, D], probes [hutchinson_probes, B, D])``, drawn in
+    that order."""
     gen_device = generator.device if generator is not None else device
-    return torch.randn(shape, generator=generator, device=gen_device).to(device)
+
+    def draw(shape):
+        return torch.randn(shape, generator=generator, device=gen_device).to(device)
+
+    if cfg.hutchpp_sketch > 0:
+        sketch = draw((cfg.hutchpp_sketch, B, D))
+        return sketch, draw((cfg.hutchinson_probes, B, D))
+    return draw((B, D) if cfg.hutchinson_probes == 1 else (cfg.hutchinson_probes, B, D))
 
 
 def _augmented_field(cnf: FlowMatchingCNF, features, approx: bool, eps, cfg: SolveConfig):
@@ -92,7 +108,12 @@ def _augmented_field(cnf: FlowMatchingCNF, features, approx: bool, eps, cfg: Sol
     if not approx and cfg.use_exact_trace_plan and cnf.exact_trace_plan is not None:
         basis, offset = cnf.exact_trace_plan()
 
-    if cfg.structured_tangent and cnf.tangent_value_and_div is not None:
+    if (
+        cfg.structured_tangent
+        and cnf.tangent_value_and_div is not None
+        and cfg.trace_column_chunk is None
+        and not (approx and cfg.hutchpp_sketch > 0)  # Hutch++ needs J v vectors
+    ):
         weights = cnf.trace_weights() if cnf.trace_weights is not None else None
 
         def func(t, y):
@@ -120,12 +141,16 @@ def _augmented_field(cnf: FlowMatchingCNF, features, approx: bool, eps, cfg: Sol
         def f_x(xb):
             return cnf.apply(xb, t, features)
 
-        if approx and eps.dim() == 3:
+        if approx and isinstance(eps, tuple):
+            v, div = value_and_hutchpp_divergence(f_x, x, *eps)
+        elif approx and eps.dim() == 3:
             v, div = value_and_multi_probe_hutchinson(f_x, x, eps)
         elif approx:
             v, div = value_and_hutchinson_divergence(f_x, x, eps)
         else:
-            v, div = value_and_exact_divergence(f_x, x, basis=basis, trace_offset=offset)
+            v, div = value_and_exact_divergence(
+                f_x, x, column_chunk=cfg.trace_column_chunk, basis=basis, trace_offset=offset
+            )
         return torch.cat([v.detach(), div.detach()[:, None]], dim=-1)
 
     return func
@@ -166,7 +191,8 @@ def get_log_prob(
 
     Returns ``(log_p, log_prob_base, delta_log_lik)`` (plus `ODEStats`
     when ``return_stats``), with ``log_p = log_prob_base(x0) + delta``.
-    ``eps`` injects the Hutchinson probes (``approx=True``).
+    ``eps`` injects the Hutchinson probes (``approx=True``): a tensor, or
+    the ``(sketch, probes)`` pair of Hutch++.
     """
     B, D = x.shape
     if approx and eps is None:
@@ -198,8 +224,8 @@ def sample_and_log_prob_cnf(
 
     Returns ``(x1, log_q)`` (plus `ODEStats` when ``return_stats``) with
     ``log_q = log_prob_base(x0) - delta``.  ``x0`` (base samples) and
-    ``eps`` (probes) may be injected; otherwise they are drawn from
-    ``generator``, x0 first.
+    ``eps`` (probes, or Hutch++'s pair) may be injected; otherwise they are
+    drawn from ``generator``, x0 first.
     """
     if x0 is None:
         x0 = cnf.sample_base((batch_size,), generator=generator)

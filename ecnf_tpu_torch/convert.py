@@ -6,6 +6,7 @@ or a flat mapping of ``"/"``-joined paths as saved with ``numpy.savez``)
 into a ``state_dict`` of `ecnf_tpu_torch.cnf.build.FlatEGNNField`, and
 one of `ecnf_tpu.models.vector_net.VectorNet` (the MoG field) into one of
 `ecnf_tpu_torch.models.vector_net.VectorNet`; `to_flax` is the inverse.
+Both know the plain and the `StableMLP` EGNN (``network.stable_mlp``).
 This is the only place where layouts change: flax Dense kernels are ``[in,
 out]``, torch weights ``[out, in]``.
 """
@@ -17,6 +18,7 @@ import torch
 from torch import nn
 
 _MLPS = {"MLP_0": "phi_e", "MLP_1": "phi_x", "MLP_2": "phi_h"}
+_STABLE_MLPS = {"StableMLP_0": "phi_e", "StableMLP_1": "phi_x", "StableMLP_2": "phi_h"}
 _DENSES = {"Dense_0": "phi_x_out", "Dense_1": "gate"}
 _LEAVES = {"kernel": "weight", "bias": "bias"}
 
@@ -37,6 +39,19 @@ def _torch_name(path: str) -> str:
     m = re.fullmatch(r"EGNN_0/EGCL_(\d+)/(Dense_[01])/(kernel|bias)", path)
     if m:
         return f"egnn.blocks.{m[1]}.{_DENSES[m[2]]}.{_LEAVES[m[3]]}"
+    m = re.fullmatch(r"EGNN_0/EGCL_(\d+)/(StableMLP_[012])/(.+)", path)
+    if m:
+        prefix = f"egnn.blocks.{m[1]}.{_STABLE_MLPS[m[2]]}"
+        inner = m[3]
+        m = re.fullmatch(r"(ConcatDense_0|Dense_0)/(kernel|bias)", inner)
+        if m:
+            return f"{prefix}.{'first' if m[1] == 'ConcatDense_0' else 'out'}.{_LEAVES[m[2]]}"
+        m = re.fullmatch(r"NonLinearLayerWithResidualAndLayerNorm_(\d+)/"
+                         r"(?:Dense_0/(kernel|bias)|LayerNorm_0/(scale|bias))", inner)
+        if m and m[2]:
+            return f"{prefix}.residual.{m[1]}.dense.{_LEAVES[m[2]]}"
+        if m:
+            return f"{prefix}.residual.{m[1]}.norm.{m[3]}"
     m = re.fullmatch(r"ConcatDense_(\d+)/(kernel|bias)", path)  # VectorNet
     if m:
         return f"layers.{m[1]}.{_LEAVES[m[2]]}"
@@ -66,6 +81,17 @@ def _flax_path(name: str) -> str:
     if m:
         dense = {v: k for k, v in _DENSES.items()}[m[2]]
         return f"EGNN_0/EGCL_{m[1]}/{dense}/{leaves[m[3]]}"
+    m = re.fullmatch(r"egnn\.blocks\.(\d+)\.(phi_[exh])\.(first|out)\.(weight|bias)", name)
+    if m:
+        mlp = {v: k for k, v in _STABLE_MLPS.items()}[m[2]]
+        dense = "ConcatDense_0" if m[3] == "first" else "Dense_0"
+        return f"EGNN_0/EGCL_{m[1]}/{mlp}/{dense}/{leaves[m[4]]}"
+    m = re.fullmatch(r"egnn\.blocks\.(\d+)\.(phi_[exh])\.residual\.(\d+)\."
+                     r"(?:dense\.(weight|bias)|norm\.(scale|bias))", name)
+    if m:
+        mlp = {v: k for k, v in _STABLE_MLPS.items()}[m[2]]
+        layer = f"EGNN_0/EGCL_{m[1]}/{mlp}/NonLinearLayerWithResidualAndLayerNorm_{m[3]}"
+        return f"{layer}/Dense_0/{leaves[m[4]]}" if m[4] else f"{layer}/LayerNorm_0/{m[5]}"
     m = re.fullmatch(r"layers\.(\d+)\.(weight|bias)", name)  # VectorNet
     if m:
         return f"ConcatDense_{m[1]}/{leaves[m[2]]}"

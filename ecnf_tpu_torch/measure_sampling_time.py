@@ -90,8 +90,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         n_frames=N_NODES, dim=DIM, sigma_min=cfg.flow.sigma_min, base_scale=cfg.flow.base_scale,
         n_blocks_egnn=net.n_blocks_egnn, mlp_units=net.mlp_units,
         n_invariant_feat_hidden=net.n_invariant_feat_hidden,
-        time_embedding_dim=net.time_embedding_dim, n_features=1, device=device,
-        generator=torch.Generator().manual_seed(0),
+        time_embedding_dim=net.time_embedding_dim, n_features=1, stable_mlp=net.stable_mlp,
+        device=device, generator=torch.Generator().manual_seed(0),
     )
     latest = get_latest_checkpoint(args.checkpoint_dir)
     if latest is not None:

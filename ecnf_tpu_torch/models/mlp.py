@@ -32,7 +32,8 @@ class ConcatDense(nn.Module):
 
     ``output_scale=None`` initialises the kernel like flax's default
     (truncated lecun-normal); a float ``s`` initialises it like
-    ``variance_scaling(s, "fan_avg", "uniform")``.  Biases start at zero.
+    ``variance_scaling(s, "fan_avg", "uniform")`` (``0.0`` gives
+    ``zeros_init()``'s zeros).  Biases start at zero.
     """
 
     def __init__(
@@ -101,3 +102,89 @@ class MLP(nn.Module):
         if self.activate_final:
             x = F.silu(x)
         return x
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm()`` over the last axis: ``epsilon=1e-6``, the
+    statistics in f32 as ``E[x^2] - E[x]^2`` (clamped at 0), scale and
+    bias f32.  A bf16 input is promoted, so the output is f32 (flax's
+    promotion when the layer is given no ``dtype``)."""
+
+    def __init__(self, width: int, epsilon: float = 1e-6):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(width))
+        self.bias = nn.Parameter(torch.zeros(width))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: Tensor) -> Tensor:
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return (x - mean) * mul + self.bias
+
+
+class NonLinearLayerWithResidualAndLayerNorm(nn.Module):
+    """``silu(Dense(LayerNorm(x))) + x`` (flax's submodules ``LayerNorm_0``
+    and ``Dense_0``).  As in the JAX package neither layer gets the compute
+    dtype, so with bf16 activations both run in f32 and so does the sum."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.norm = LayerNorm(width)
+        self.dense = ConcatDense((width,), width)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.silu(self.dense(self.norm(x))) + x
+
+
+class StableMLP(nn.Module):
+    """MLP of LayerNorm + residual blocks (port of `ecnf_tpu/models/mlp.py:
+    StableMLP`, reference `ecnf/nets/mlp.py:32-72`).
+
+    ``first`` is flax's ``ConcatDense_0`` (variadic inputs fused as in
+    `MLP`, compute dtype), ``residual[k]`` its
+    ``NonLinearLayerWithResidualAndLayerNorm_k`` (f32, see there) and
+    ``out`` its output ``Dense_0`` (compute dtype; absent with
+    ``activate_final``).  The output kernel starts as flax's default,
+    at zero (``zero_init_output``) or from ``variance_scaling(s,
+    "fan_avg", "uniform")`` (``output_variance_scaling=s``).
+    """
+
+    def __init__(
+        self,
+        in_widths: Sequence[int],
+        mlp_units: Sequence[int],
+        activate_final: bool = False,
+        zero_init_output: bool = False,
+        output_variance_scaling: Optional[float] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        units = tuple(mlp_units)
+        if not activate_final and len(units) < 2:
+            raise ValueError("MLP is single linear layer with no non-linearity")
+        activated = units if activate_final else units[:-1]
+        if len(set(activated)) != 1:
+            raise ValueError(f"StableMLP needs constant width, got {units}")
+        if activate_final and (zero_init_output or output_variance_scaling):
+            raise ValueError("an output-layer init needs activate_final=False")
+        self.first = ConcatDense(in_widths, activated[0], compute_dtype)
+        self.residual = nn.ModuleList(
+            NonLinearLayerWithResidualAndLayerNorm(w) for w in activated[1:]
+        )
+        self.out = None
+        if not activate_final:
+            scale = 0.0 if zero_init_output else (output_variance_scaling or None)
+            self.out = ConcatDense((activated[-1],), units[-1], compute_dtype, output_scale=scale)
+
+    def forward(self, *inputs: Tensor) -> Tensor:
+        x = F.silu(self.first(*inputs))
+        for layer in self.residual:
+            x = layer(x)
+        return x if self.out is None else self.out(x)

@@ -2,8 +2,11 @@
 
 These are the forward-mode autodiff routes (``torch.func.jvp`` over the
 field, vmapped over directions).  They serve ``SolveConfig(
-structured_tangent=False)`` and are the oracle of the hand-linearised
-tangent in `ops/tangent.py`.
+structured_tangent=False)``, a chunked exact trace, Hutch++ and every
+field without a structured tangent (`StableMLP`), and are the oracle of the
+hand-linearised tangent in `ops/tangent.py`.  Within one vmapped JVP the
+primal is computed once (it does not depend on the direction), so a chunk
+of columns costs one primal and its tangent streams.
 """
 from typing import Callable, Optional, Tuple
 
@@ -37,6 +40,7 @@ def zero_com_trace_basis(n_nodes: int, dim: int, device=None) -> Tensor:
 def value_and_exact_divergence(
     f: BatchedField,
     x: Tensor,
+    column_chunk: Optional[int] = None,
     basis: Optional[Tensor] = None,
     trace_offset: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
@@ -44,6 +48,10 @@ def value_and_exact_divergence(
 
     ``basis``: ``[K, D]`` rows shared by the batch (``None`` = identity,
     the full trace).  The field must act on each sample independently.
+    ``column_chunk``: take the columns this many at a time, which bounds
+    the memory of the tangent streams to one chunk's; the chunks' sums are
+    added in order, as the JAX package's scan adds them (its zero padding
+    of the last chunk adds nothing).
     """
     B, D = x.shape
     if basis is None:
@@ -55,10 +63,23 @@ def value_and_exact_divergence(
         return (jv * e).sum(dim=-1)
 
     value = f(x)
-    div = vmap(col)(basis).sum(dim=0)
+    if column_chunk is None or column_chunk >= basis.shape[0]:
+        div = vmap(col)(basis).sum(dim=0)
+    else:
+        if column_chunk < 1:
+            raise ValueError(f"column_chunk must be >= 1, got {column_chunk}")
+        div = torch.zeros((B,), dtype=x.dtype, device=x.device)
+        for chunk in basis.split(column_chunk):
+            div = div + vmap(col)(chunk).sum(dim=0)
     if trace_offset is not None:
         div = div + trace_offset
     return value, div
+
+
+def exact_divergence(f: BatchedField, x: Tensor, column_chunk: Optional[int] = None) -> Tensor:
+    """Exact per-sample divergence (see `value_and_exact_divergence`); the
+    JAX package's `exact_divergence`, kept so its callers port by name."""
+    return value_and_exact_divergence(f, x, column_chunk)[1]
 
 
 def value_and_hutchinson_divergence(
@@ -67,6 +88,13 @@ def value_and_hutchinson_divergence(
     """``(f(x), eps . (J eps))`` with one fixed probe ``eps [B, D]`` per sample."""
     value, jv = jvp(f, (x,), (eps,))
     return value, (jv * eps).sum(dim=-1)
+
+
+def hutchinson_divergence(f: BatchedField, x: Tensor, eps: Tensor) -> Tensor:
+    """Hutchinson trace estimate (see `value_and_hutchinson_divergence`);
+    the JAX package's `hutchinson_divergence`, kept so its callers port by
+    name."""
+    return value_and_hutchinson_divergence(f, x, eps)[1]
 
 
 def value_and_multi_probe_hutchinson(
@@ -78,3 +106,37 @@ def value_and_multi_probe_hutchinson(
         return (jvp(f, (x,), (e,))[1] * e).sum(dim=-1)
 
     return f(x), vmap(est)(eps).mean(dim=0)
+
+
+def value_and_hutchpp_divergence(
+    f: BatchedField, x: Tensor, sketch: Tensor, probes: Tensor
+) -> Tuple[Tensor, Tensor]:
+    """Hutch++ trace estimate (Meyer, Musco, Musco & Woodruff 2021), the
+    non-symmetric form of the JAX package's.
+
+    Per sample, ``Q`` is the thin QR basis of the sketch ``Y = J S``, and
+    ``tr(J) = tr(Q^T J Q) + E[g^T J g]`` with ``g = (I - Q Q^T) eps``: the
+    estimate is unbiased for any Jacobian, and its random part sees only
+    the spectrum outside the sketched subspace.  Neither term depends on
+    which orthonormal basis of ``span(Y)`` the QR returns.
+
+    ``sketch [M1, B, D]`` and ``probes [M2, B, D]`` are Gaussian draws;
+    ``2 M1 + M2`` Jacobian-vector products.  With ``M2 = 0`` the result is
+    the sketch's term alone (exact when ``J``'s rank is at most ``M1``).
+    Returns ``(f(x) [B, D], divergence estimate [B])``.
+    """
+
+    def jv(e):
+        return jvp(f, (x,), (e,))[1]
+
+    value = f(x)
+    y = vmap(jv)(sketch)  # [M1, B, D] = J s_k
+    q, _ = torch.linalg.qr(y.permute(1, 2, 0))  # [B, D, M1]
+    qk = q.permute(2, 0, 1)  # [M1, B, D]
+    t_sketch = torch.einsum("kbd,kbd->b", vmap(jv)(qk), qk)
+    if probes.shape[0] == 0:
+        return value, t_sketch
+    qte = torch.einsum("bdk,jbd->jbk", q, probes)
+    g = probes - torch.einsum("bdk,jbk->jbd", q, qte)
+    t_resid = torch.einsum("jbd,jbd->jb", vmap(jv)(g), g).mean(dim=0)
+    return value, t_sketch + t_resid

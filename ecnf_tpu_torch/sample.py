@@ -15,7 +15,8 @@ Two ways to name the model:
   and the solve come from ``--config`` (default
   ``examples/configs/lj13.yaml``) and its ``key=value`` overrides, as in
   training (``training.use_fixed_step_size``, ``training.ode_method``,
-  ``training.hutchinson_probes``);
+  ``training.hutchinson_probes``; ``flow.network.stable_mlp`` too, whose
+  solves take the ``torch.func`` trace, as in JAX);
 - without a config: ``--params-npz`` (a flax parameter tree saved with
   ``numpy.savez`` under ``"/"``-joined paths, see
   `ecnf_tpu_torch.convert`) or the seeded init, with the network and the
@@ -93,7 +94,7 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--base-scale", type=float, default=1.0)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the CPU only when asked for (--device cpu)")
-    p.set_defaults(sigma_min=0.01, checkpoint=None)
+    p.set_defaults(sigma_min=0.01, checkpoint=None, stable_mlp=False)
 
 
 def add_config_args(p: argparse.ArgumentParser) -> None:
@@ -137,6 +138,7 @@ def apply_config(parser: argparse.ArgumentParser, args: argparse.Namespace,
     _refuse_unported(cfg)
     net, training = cfg.flow.network, cfg.training
     args.n_blocks, args.mlp_units = net.n_blocks_egnn, list(net.mlp_units)
+    args.stable_mlp = net.stable_mlp
     args.hidden, args.time_embedding_dim = net.n_invariant_feat_hidden, net.time_embedding_dim
     args.dtype = net.compute_dtype or "float32"
     args.sigma_min, args.base_scale = cfg.flow.sigma_min, cfg.flow.base_scale
@@ -200,7 +202,7 @@ def build_from_args(args: argparse.Namespace, device):
         mlp_units=tuple(args.mlp_units), n_invariant_feat_hidden=args.hidden,
         time_embedding_dim=args.time_embedding_dim,
         n_features=args.n_nodes if args.features == "arange" else 1,
-        compute_dtype=args.dtype, device=device,
+        stable_mlp=args.stable_mlp, compute_dtype=args.dtype, device=device,
         generator=torch.Generator().manual_seed(args.seed),
     )
     if args.params_npz:

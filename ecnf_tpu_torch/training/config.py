@@ -19,6 +19,8 @@ from ecnf_tpu_torch.training.yaml_subset import safe_load
 
 @dataclass
 class NetworkConfig:
+    # Declared by the JAX package and read by neither package: the field is
+    # the EGNN whatever this says.
     type: str = "egnn"
     mlp_units: Tuple[int, ...] = (128, 128, 128)
     n_blocks_egnn: int = 3
@@ -70,11 +72,16 @@ class TrainingConfig:
     runtime_limit: Optional[float] = None
     use_64_bit: bool = False
     # Fields of the JAX package's schema beyond the reference's.  The port
-    # acts on hutchinson_probes, ode_method and microbatch; it refuses a
-    # non-default precision, trace_column_chunk or profile_dir, and ignores
-    # compile_cache, epochs_per_dispatch and eval_dispatch_chunk, which tune
-    # XLA compilation and dispatch only (`setup_training`).
+    # acts on precision (float32 | tensorfloat32 | bfloat16, the process's
+    # f32 matmul precision; bfloat16 runs as tensorfloat32 on a CUDA
+    # card), trace_column_chunk, hutchinson_probes,
+    # ode_method, microbatch and profile_dir (a torch.profiler Chrome
+    # trace), and ignores compile_cache, epochs_per_dispatch and
+    # eval_dispatch_chunk, which tune XLA compilation and dispatch only
+    # (`setup_training`).  use_64_bit above is refused.
     precision: str = "float32"
+    # Exact-trace columns per chunk (None: all at once); leaves the
+    # structured tangent for the torch.func route.
     trace_column_chunk: Optional[int] = None
     # Hutchinson probes per sample when eval_exact_log_prob=false.
     hutchinson_probes: int = 1

@@ -9,10 +9,14 @@ when the time extrapolated to the next checkpoint passes the runtime
 limit.  One generator, seeded from ``seed``, feeds ``init_state`` and then
 each evaluation in turn (the JAX key is split in the same order).  At the
 end it prints the seconds the epochs and the evaluations took (host clock;
-each returns values on the host, which waits for the device).  The
-JAX options that trace with a profiler or switch to 64-bit are not
-ported; the one that groups epochs into one dispatch has nothing to group
-in eager PyTorch (`setup_training` ignores it).
+each returns values on the host, which waits for the device).  With
+``profile_dir`` a run that starts at iteration 0 is traced by
+``torch.profiler`` (the CPU, and the card when there is one) from before
+its first epoch until the epoch that ends at iteration 2 or the run's end,
+and the trace is written there as a Chrome trace (``trace.json``); a
+resumed run is not traced, as in JAX.  JAX's switch to 64-bit is refused
+by `setup_training`; the option that groups epochs into one dispatch has
+nothing to group in eager PyTorch (`setup_training` ignores it).
 """
 import os
 import pathlib
@@ -62,6 +66,7 @@ class TrainConfig(NamedTuple):
     save_dir: str = "runs"
     resume: bool = False
     runtime_limit: Optional[float] = None  # hours
+    profile_dir: Optional[str] = None
 
 
 def _schedule(n_iteration: int, n_points: int) -> np.ndarray:
@@ -79,6 +84,21 @@ def _write_epoch_info(logger: Logger, info: dict, iteration_n: int) -> None:
         return
     for b in range(shape[0]):
         logger.write(dict({k: info[k][b] for k in keys}, iteration=iteration_n))
+
+
+def _start_profiler(profile_dir: str) -> torch.profiler.profile:
+    pathlib.Path(profile_dir).mkdir(exist_ok=True, parents=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler: torch.profiler.profile, profile_dir: str) -> None:
+    profiler.stop()
+    profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
 def run_training(config: TrainConfig) -> Tuple[Logger, TrainingStateT]:
@@ -120,11 +140,18 @@ def run_training(config: TrainConfig) -> Tuple[Logger, TrainingStateT]:
         config.logger.write(eval_info)
         print(f"initial model eval complete, eval info: \n {eval_info}")
 
+    profiler = None
+    if config.profile_dir and start_iter == 0:
+        profiler = _start_profiler(config.profile_dir)
+
     for iteration in range(start_iter, config.n_iteration):
         t0 = perf_counter()
         state, info = config.update_state(state)
         epoch_s.append(perf_counter() - t0)
         _write_epoch_info(config.logger, info, iteration)
+        if profiler is not None and iteration >= start_iter + 2:
+            _stop_profiler(profiler, config.profile_dir)
+            profiler = None
 
         if config.eval_and_plot_fn is not None and iteration in eval_iter:
             t0 = perf_counter()
@@ -144,6 +171,9 @@ def run_training(config: TrainConfig) -> Tuple[Logger, TrainingStateT]:
                 done = max(iteration - start_iter, 1)
                 if hours * (np.min(later) - start_iter) / done > config.runtime_limit:
                     break
+
+    if profiler is not None:
+        _stop_profiler(profiler, config.profile_dir)
 
     if epoch_s:
         print(f"run_training: {len(epoch_s)} epochs in {sum(epoch_s):.1f} s "

@@ -13,6 +13,7 @@ at the end of training).  One card, no mesh.  Figures are SVG
 import copy
 import os
 import pathlib
+import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -233,26 +234,59 @@ def evaluate(
     return {k: float(v) for k, v in info.items()}
 
 
-# Fields of the schema that the port does not implement, with their
-# defaults: any other value is refused.
+# Fields of the schema that the port does not implement: their default,
+# and why any other value is refused.
 _UNPORTED = {
-    ("training", "use_64_bit"): False,
-    ("training", "profile_dir"): None,
-    ("training", "precision"): "float32",
-    ("training", "trace_column_chunk"): None,
-    ("network", "stable_mlp"): False,
-    ("network", "type"): "egnn",
+    ("training", "use_64_bit"): (
+        False,
+        "the JAX package does not run it: under x64 the EGNN's final_scaling "
+        "(ecnf_tpu/models/egnn.py:226, ones_init() with no dtype) is created "
+        "float64, so the field returns float64 for float32 data and the "
+        "solve's while_loop raises a TypeError (ecnf_tpu/ops/ode.py:237, "
+        "carry float32 in, float64 out); a port that ran it would add a "
+        "feature the reference lacks",
+    ),
 }
 
 
 def _refuse_unported(cfg: ExperimentConfig) -> None:
     sections = {"training": cfg.training, "network": cfg.flow.network}
-    for (section, name), default in _UNPORTED.items():
+    for (section, name), (default, reason) in _UNPORTED.items():
         value = getattr(sections[section], name)
         if value != default:
             raise NotImplementedError(
-                f"{section}.{name}={value!r} is not ported to ecnf_tpu_torch (only {default!r})"
+                f"{section}.{name}={value!r} is not ported to ecnf_tpu_torch (only "
+                f"{default!r}): {reason}"
             )
+
+
+# `training.precision` -> `torch.set_float32_matmul_precision`, as the JAX
+# package sets `jax_default_matmul_precision`.
+MATMUL_PRECISION = {"float32": "highest", "tensorfloat32": "high", "bfloat16": "medium"}
+
+
+def set_matmul_precision(precision: str) -> None:
+    """Set the process-wide precision of f32 matrix products from
+    ``training.precision`` (one of `MATMUL_PRECISION`'s names; any other
+    raises).  As in the JAX package it stays set after the run, and it
+    reaches only the products that PyTorch dispatches: the hand kernels
+    keep their own (the edge kernel's bf16 mma.sync and the f32 kernels'
+    3xTF32), as the Pallas kernels keep theirs.  Unlike JAX, ``"float32"``
+    sets ``"highest"`` too, so it undoes an earlier run's setting.
+
+    On a CUDA card ``"bfloat16"`` computes as ``"tensorfloat32"``: cuBLAS
+    has no f32 product with bf16 internals, so PyTorch runs ``"medium"``
+    as TF32 (an H100 gave the same log q for both: `chip_smoke.py` phase
+    16 (e)).
+    It warns so when a card is present."""
+    if precision not in MATMUL_PRECISION:
+        raise ValueError(
+            f"training.precision={precision!r}: expected one of {sorted(MATMUL_PRECISION)}"
+        )
+    if precision == "bfloat16" and torch.cuda.is_available():
+        warnings.warn("training.precision=bfloat16: CUDA f32 matrix products run as "
+                      "tensorfloat32 under torch's 'medium' precision", stacklevel=2)
+    torch.set_float32_matmul_precision(MATMUL_PRECISION[precision])
 
 
 LoadDatasetFn = Callable[[Optional[int], Optional[int]], tuple]
@@ -318,6 +352,11 @@ def setup_training(
     after it, drawn with the evaluation's generator and written as
     ``plot_%03i_iter_%08i.svg`` when saving.
 
+    ``training.precision`` sets the process's f32 matmul precision
+    (`set_matmul_precision`); ``trace_column_chunk`` and
+    ``network.stable_mlp`` go to the solve and the CNF as in JAX;
+    ``network.type`` is read by neither package (the field is the EGNN
+    whatever it says); ``profile_dir`` is the loop's.
     ``compile_cache``, ``epochs_per_dispatch`` and ``eval_dispatch_chunk``
     tune XLA compilation and dispatch and are ignored (an eager epoch has
     no dispatch to group); the fields of `_UNPORTED` are refused unless
@@ -327,6 +366,7 @@ def setup_training(
     device = resolve_device(device)
     tcfg = cfg.training
     batch_size = tcfg.batch_size
+    set_matmul_precision(tcfg.precision)
 
     logger = setup_logger(
         cfg.logger, save_dir=tcfg.save_dir or ".", save=tcfg.save,
@@ -372,11 +412,12 @@ def setup_training(
         n_blocks_egnn=net_cfg.n_blocks_egnn, mlp_units=net_cfg.mlp_units,
         n_invariant_feat_hidden=net_cfg.n_invariant_feat_hidden,
         time_embedding_dim=net_cfg.time_embedding_dim,
-        n_features=int(train_features_flat.max()) + 1,
+        n_features=int(train_features_flat.max()) + 1, stable_mlp=net_cfg.stable_mlp,
         compute_dtype=net_cfg.compute_dtype, device=device,
     )
     solve_cfg = SolveConfig(
         use_fixed_step_size=tcfg.use_fixed_step_size,
+        trace_column_chunk=tcfg.trace_column_chunk,
         hutchinson_probes=tcfg.hutchinson_probes,
         method=tcfg.ode_method,
     )
@@ -434,4 +475,5 @@ def setup_training(
         save_dir=save_path,
         resume=tcfg.resume,
         runtime_limit=tcfg.runtime_limit,
+        profile_dir=tcfg.profile_dir,
     )

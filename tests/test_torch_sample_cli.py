@@ -220,5 +220,5 @@ def test_checkpoint_dir_refuses_the_flag_route(jax_checkpoint_dir, tmp_path):
         with pytest.raises(SystemExit) as exc:
             sample.main(base + extra)
         assert exc.value.code == 2
-    with pytest.raises(NotImplementedError, match="network.stable_mlp"):
-        sample.main(base + ["flow.network.stable_mlp=true"])
+    with pytest.raises(NotImplementedError, match="training.use_64_bit"):
+        sample.main(base + ["training.use_64_bit=true"])

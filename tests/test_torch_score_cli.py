@@ -196,8 +196,8 @@ def test_checkpoint_dir_refusals(jax_checkpoints, tmp_path, exported):
         with pytest.raises(SystemExit) as exc:
             score.main(base + extra)
         assert exc.value.code == 2
-    with pytest.raises(NotImplementedError, match="network.stable_mlp=True"):
-        score.main(base + ["flow.network.stable_mlp=true"])
+    with pytest.raises(NotImplementedError, match="training.use_64_bit=True"):
+        score.main(base + ["training.use_64_bit=true"])
     with pytest.raises(SystemExit, match="use_ema=false"):
         score.main(["--checkpoint-dir", str(root / "no_ema"), "--data", str(data), "--device", "cpu",
                     "--ema", *SMALL_CONFIG])

@@ -23,9 +23,24 @@ Beside it:
   (zero-CoM frames, ``restore_serving_params``, `get_log_prob`) with the
   f32 compute dtype, the exact trace and fixed-step rk4 at 0.05.
 
-Usage (from the repo root, on the CPU; ~1 min):
+With ``--stable-mlp`` the network is the same width with
+``network.stable_mlp: true`` (`StableMLP`s, LayerNorm scales redrawn too,
+every weight rounded to a value that bfloat16 holds so that the float32
+checkpoint stays under 1 MB), written to
+``tests/torch_fixtures/jax_aldp_stable``, and ``expected.json``
+also holds JAX's log p of the frames under ``params`` for two options of
+the solve that the JAX package's ``score`` does not expose: Hutch++ with
+``hutchpp_sketch=2`` and ``hutchinson_probes=4`` on the sketch and probes
+saved beside it (``hutchpp_sketch.npy`` ``[2, 16, 66]`` and
+``hutchpp_probes.npy`` ``[4, 16, 66]``, float32, numpy seed 0), and the
+exact trace with ``trace_column_chunk=25`` (K = 63 columns: two full
+chunks and a last one zero-padded, as JAX pads it).
+
+Usage (from the repo root, on the CPU; ~1 min each):
     JAX_PLATFORMS=cpu python tests/torch_make_jax_checkpoint.py \
         [--out tests/torch_fixtures/jax_aldp]
+    JAX_PLATFORMS=cpu python tests/torch_make_jax_checkpoint.py --stable-mlp \
+        [--out tests/torch_fixtures/jax_aldp_stable]
 """
 import argparse
 import hashlib
@@ -46,6 +61,7 @@ sys.path.insert(0, str(REPO / "tests"))
 
 import torch_parity as tp  # noqa: E402
 from ecnf_tpu.cnf.build import build_cnf  # noqa: E402
+from ecnf_tpu.cnf import sampling  # noqa: E402
 from ecnf_tpu.cnf.sampling import SolveConfig, get_log_prob  # noqa: E402
 from ecnf_tpu.targets.data import load_aldp  # noqa: E402
 from ecnf_tpu.training.checkpoints import (  # noqa: E402
@@ -67,6 +83,11 @@ SCORE_OVERRIDES = (
 )
 DEFAULT_OUT = REPO / "tests" / "torch_fixtures" / "jax_aldp"
 COMMAND = "JAX_PLATFORMS=cpu python tests/torch_make_jax_checkpoint.py"
+# --stable-mlp: the network override, the injected Hutch++ draws and the chunk.
+STABLE = ("flow.network.stable_mlp=true",)
+STABLE_OUT = REPO / "tests" / "torch_fixtures" / "jax_aldp_stable"
+HUTCHPP = dict(hutchpp_sketch=2, hutchinson_probes=4)
+CHUNK = 25
 
 
 def _cnf(cfg, n_nodes: int):
@@ -98,7 +119,12 @@ def _state(cfg, n_nodes: int):
 
     def redrawn(seed):
         t = tp.slow_time(tp.redraw(tree, seed), net.n_invariant_feat_hidden, net.time_embedding_dim)
-        return jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), t)
+        t = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), t)
+        if net.stable_mlp:
+            # Values a bfloat16 holds (still float32 leaves): their low
+            # mantissa bytes are zero, so zstd halves the checkpoint.
+            t = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16).astype(jnp.float32), t)
+        return t
 
     params = redrawn(0)
     return state._replace(params=params, ema_params=redrawn(1), opt_state=optimizer.init(params))
@@ -123,9 +149,9 @@ def leaf_digests(tree) -> dict:
     return out
 
 
-def jax_log_p(checkpoint: str, frames: np.ndarray) -> dict:
+def jax_log_p(checkpoint: str, frames: np.ndarray, network=()) -> dict:
     """JAX's log p of ``frames`` under the checkpoint's params and EMA params."""
-    cfg = load_config(str(REPO / CONFIG), overrides=list(SCORE_OVERRIDES))
+    cfg = load_config(str(REPO / CONFIG), overrides=list(SCORE_OVERRIDES) + list(network))
     n, n_nodes, dim = frames.shape
     cnf = _cnf(cfg, n_nodes)
     pos = jnp.asarray(frames, jnp.float32)
@@ -143,10 +169,42 @@ def jax_log_p(checkpoint: str, frames: np.ndarray) -> dict:
     }
 
 
-def make(out: Path) -> dict:
+def jax_option_log_p(checkpoint: str, frames: np.ndarray, out: Path) -> dict:
+    """JAX's log p of ``frames`` under the checkpoint's params with Hutch++ on
+    injected draws (saved under ``out``) and with the chunked exact trace."""
+    cfg = load_config(str(REPO / CONFIG), overrides=list(SCORE_OVERRIDES) + list(STABLE))
+    n, n_nodes, dim = frames.shape
+    cnf = _cnf(cfg, n_nodes)
+    pos = jnp.asarray(frames, jnp.float32)
+    x = (pos - jnp.mean(pos, axis=1, keepdims=True)).reshape(n, n_nodes * dim)
+    feats = jnp.tile(jnp.arange(n_nodes, dtype=jnp.int32), (n, 1))
+    template = cnf.init(jax.random.PRNGKey(0), x[:2], jnp.zeros(2), feats[:2])
+    params = restore_serving_params(checkpoint, template)
+    fixed = dict(use_fixed_step_size=True, method=cfg.training.ode_method)
+    rng = np.random.default_rng(0)
+    sketch = rng.normal(size=(HUTCHPP["hutchpp_sketch"], n, n_nodes * dim)).astype(np.float32)
+    probes = rng.normal(size=(HUTCHPP["hutchinson_probes"], n, n_nodes * dim)).astype(np.float32)
+    np.save(out / "hutchpp_sketch.npy", sketch)
+    np.save(out / "hutchpp_probes.npy", probes)
+    hpp = SolveConfig(**fixed, **HUTCHPP)
+    func = sampling._augmented_field(cnf, params, feats, True, (jnp.asarray(sketch), jnp.asarray(probes)),
+                                     hpp)
+    y1, _ = sampling._solve(func, jnp.concatenate([x, jnp.zeros((n, 1))], axis=-1), 1.0, 0.0, hpp)
+    chunked = SolveConfig(**fixed, trace_column_chunk=CHUNK)
+    chunk_log_p = get_log_prob(cnf, params, x, jax.random.PRNGKey(0), feats, cfg=chunked)[0]
+    return {
+        "hutchpp": dict(HUTCHPP, sketch="hutchpp_sketch.npy", probes="hutchpp_probes.npy",
+                        log_p=[float(v) for v in np.asarray(cnf.log_prob_base(y1[:, :-1]) + y1[:, -1])]),
+        "trace_column_chunk": {"chunk": CHUNK, "log_p": [float(v) for v in np.asarray(chunk_log_p)]},
+    }
+
+
+def make(out: Path, stable: bool = False) -> dict:
     """Write the checkpoint, ``frames.npy`` and ``expected.json`` under
-    ``out``; returns what ``expected.json`` holds."""
-    cfg = load_config(str(REPO / CONFIG))
+    ``out`` (``stable``: the `StableMLP` network, with the Hutch++ and
+    chunked numbers); returns what ``expected.json`` holds."""
+    network = STABLE if stable else ()
+    cfg = load_config(str(REPO / CONFIG), overrides=list(network))
     _, _, test = load_aldp(
         test_path=str(REPO / cfg.target.test_path), test_n_points=FRAMES[1] - FRAMES[0],
         test_skip_n=FRAMES[0],
@@ -158,20 +216,25 @@ def make(out: Path) -> dict:
     checkpoint = save_checkpoint(str(out / "model_checkpoints"), ITERATION, state)
     restored = restore_checkpoint(checkpoint, state)
     expected = {
-        "command": COMMAND,
+        "command": COMMAND + (" --stable-mlp" if stable else ""),
         "config": CONFIG,
         "checkpoint": f"model_checkpoints/state_{ITERATION:08d}",
         "frames": list(FRAMES),
-        "score_overrides": list(SCORE_OVERRIDES),
+        "score_overrides": list(SCORE_OVERRIDES) + list(network),
         "leaves": leaf_digests(restored),
-        "log_p": jax_log_p(checkpoint, frames),
+        "log_p": jax_log_p(checkpoint, frames, network),
     }
+    if stable:
+        expected.update(jax_option_log_p(checkpoint, frames, out))
     (out / "expected.json").write_text(json.dumps(expected, indent=1) + "\n")
     return expected
 
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--out", type=Path, default=DEFAULT_OUT)
+    parser.add_argument("--out", type=Path, default=None)
+    parser.add_argument("--stable-mlp", action="store_true",
+                        help="the StableMLP network (default out: tests/torch_fixtures/jax_aldp_stable)")
+    args = parser.parse_args()
     jax.config.update("jax_platforms", "cpu")
-    make(parser.parse_args().out)
+    make(args.out or (STABLE_OUT if args.stable_mlp else DEFAULT_OUT), args.stable_mlp)

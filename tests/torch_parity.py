@@ -34,17 +34,18 @@ N, DIM, H, T, B = 5, 3, 16, 8, 6
 N_FEATURES = 2
 
 
-def cnf_kwargs(blocks, units, cdt=None, n=N, dim=DIM):
+def cnf_kwargs(blocks, units, cdt=None, n=N, dim=DIM, stable=False, hidden=H):
     return dict(
         n_frames=n, dim=dim, sigma_min=0.01, base_scale=1.0,
         n_blocks_egnn=blocks, mlp_units=tuple(units),
-        n_invariant_feat_hidden=H, time_embedding_dim=T,
-        n_features=N_FEATURES, compute_dtype=cdt,
+        n_invariant_feat_hidden=hidden, time_embedding_dim=T,
+        n_features=N_FEATURES, stable_mlp=stable, compute_dtype=cdt,
     )
 
 
 def redraw(tree, seed: int):
-    """Every ``kernel`` -> N(0, 1/fan_in), every ``bias`` -> N(0, 0.01)."""
+    """Every ``kernel`` -> N(0, 1/fan_in), every ``bias`` -> N(0, 0.01),
+    every LayerNorm ``scale`` -> 1 + N(0, 0.01)."""
     rng = np.random.default_rng(seed)
 
     def walk(node):
@@ -57,6 +58,8 @@ def redraw(tree, seed: int):
                 out[key] = rng.normal(0.0, 1.0 / np.sqrt(value.shape[0]), value.shape)
             elif key == "bias":
                 out[key] = rng.normal(0.0, 0.1, value.shape)
+            elif key == "scale":
+                out[key] = 1.0 + rng.normal(0.0, 0.1, value.shape)
             else:
                 out[key] = np.asarray(value, dtype=np.float64)
         return out
@@ -74,8 +77,8 @@ def inputs(n=N, dim=DIM, batch=B, seed=0):
 
 
 @functools.lru_cache(maxsize=None)
-def _flax_tree(blocks, units, n, dim):
-    cnf = build_jax_cnf(**cnf_kwargs(blocks, units, n=n, dim=dim))
+def _flax_tree(blocks, units, n, dim, stable=False, hidden=H):
+    cnf = build_jax_cnf(**cnf_kwargs(blocks, units, n=n, dim=dim, stable=stable, hidden=hidden))
     x, t, feats = inputs(n, dim, batch=2)
     params = jax.jit(cnf.init)(
         jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(t), jnp.asarray(feats)
@@ -94,15 +97,18 @@ def slow_time(tree, h=H, t=T):
     return tree
 
 
-def make_pair(blocks=2, units=(32, 32), cdt=None, seed=0, n=N, dim=DIM, slow=False):
+def make_pair(blocks=2, units=(32, 32), cdt=None, seed=0, n=N, dim=DIM, slow=False,
+              stable=False, hidden=H, remat_blocks=False):
     """``(jax_cnf, jax_params, torch_cnf)`` sharing one redrawn weight set
-    (`slow_time` applied when ``slow``)."""
-    tree = redraw(_flax_tree(blocks, tuple(units), n, dim), seed)
+    (`slow_time` applied when ``slow``; `StableMLP`s when ``stable``; both
+    built with ``remat_blocks``)."""
+    tree = redraw(_flax_tree(blocks, tuple(units), n, dim, stable, hidden), seed)
     if slow:
-        tree = slow_time(tree)
-    jax_cnf = build_jax_cnf(**cnf_kwargs(blocks, units, cdt, n, dim))
+        tree = slow_time(tree, hidden)
+    kwargs = cnf_kwargs(blocks, units, cdt, n, dim, stable, hidden)
+    jax_cnf = build_jax_cnf(**kwargs, remat_blocks=remat_blocks)
     jax_params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), tree)
-    torch_cnf = build_torch_cnf(**cnf_kwargs(blocks, units, cdt, n, dim), device="cpu")
+    torch_cnf = build_torch_cnf(**kwargs, remat_blocks=remat_blocks, device="cpu")
     torch_cnf.field.load_state_dict(from_flax(tree))
     return jax_cnf, jax_params, torch_cnf
 

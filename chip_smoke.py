@@ -134,6 +134,22 @@ Phases, one or more lines each:
    that checkpoint with ``--ema`` and the config's own solve (adaptive
    Dopri5, bf16), Hutchinson, 256 samples in batches of 128: every sample
    and log q finite, the first batch timed apart.
+16. the options `setup_training` once refused, and Hutch++ (``phase_options``).
+17. data parallelism at world size 1 on NCCL, in a child process that a
+   launcher's variables (``COORDINATOR_ADDRESS``, ``NUM_PROCESSES=1``,
+   ``PROCESS_ID=0``) start: (a) `parallel.maybe_initialize_distributed`
+   brings NCCL up on ``cuda:0`` (backend, world size and NCCL version
+   printed; a failure is an error, never a switch to gloo); (b) the QM9
+   flagship step (B=256, bf16, EMA, microbatch 4), three updates on one
+   mesh against three without it, on the same weights and injected x0
+   and t under deterministic algorithms: parameters and EMA bit-equal (a
+   one-rank all-reduce is a copy and the division by 1 exact), ms per
+   step of each by CUDA events, and the gradient all-reduce's own ms and
+   bytes; (c) ``score`` of phase 15's JAX checkpoint through the
+   world-1 mesh: log p within ``LOGQ_LIMIT`` of JAX's, with phase 15's
+   edge launch count; (d) `sharded_value_and_exact_divergence` on the
+   ALDP fixture's field against `value_and_exact_divergence`; (e)
+   `parallel.dryrun.dryrun_multichip(1)` on the card.
 
 Bounds: the larger of the bytes a kernel must move (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
@@ -328,6 +344,15 @@ DW4_OPTION_CUTS = ("training.n_training_iter=2", "training.n_eval=0", "training.
                    "training.ode_method=rk4", "training.eval_plots=false",
                    "flow.network.stable_mlp=true", "training.trace_column_chunk=2",
                    "training.precision=tensorfloat32")
+
+# Phase 17: the world-size-1 NCCL path, in a child process (its own limit
+# in seconds); (b) its QM9 steps, (d) the field's time and sharded-trace
+# limit (max |sharded - unsharded| over max |unsharded|).
+DIST_TIMEOUT = 300
+DIST_STEPS = 3
+DIST_ALLREDUCE_REPS = 20
+DIST_TRACE_LIMIT = 1e-6
+DIST_FIELD_T = 0.5
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -2404,6 +2429,187 @@ def phase_options(card: str) -> None:
     print(f"[options] phase {time.perf_counter() - start:.1f} s; on {card}", flush=True)
 
 
+def _dist_flagship(card: str, mesh) -> None:
+    """(b) three QM9 flagship updates with the mesh against three without,
+    from the same weights and injected x0 and t."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ecnf_tpu_torch.parallel.mesh import replicate
+    from ecnf_tpu_torch.training import optim
+    from ecnf_tpu_torch.training import state as state_mod
+
+    q = QM9_TRAIN
+    B, D = q["batch"], q["n"] * 3
+    cnf = _train_cnf(q, "cuda", cdt="bfloat16", sigma_min=1e-6, base_scale=2.0)
+    weights = {k: v.clone() for k, v in cnf.field.state_dict().items()}
+    rng = np.random.default_rng(17)
+    as_card = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    steps = [(as_card(rng.normal(size=(B, D))),
+              cnf.sample_base((B,), noise=as_card(rng.normal(size=(B, D)))),
+              as_card(rng.uniform(size=(B,)))) for _ in range(DIST_STEPS)]
+    feats = torch.zeros((B, q["n"]), dtype=torch.int64, device="cuda")
+    opt = optim.build_optimizer(1e-4)
+    runs = {}
+    for name, m in (("no mesh", None), ("mesh", mesh), ("no mesh, again", None)):
+        cnf.field.load_state_dict(weights)
+        st = replicate(state_mod.init_training_state(
+            cnf, opt, torch.Generator(device="cuda").manual_seed(0), use_ema=True), m)
+        update = state_mod.make_update_fn(cnf, opt, use_ema=True, mesh=m, microbatch=4)
+        events = []
+        for x, x0, t in steps:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            st, info = update(st, x, feats, x0=x0, t=t)
+            ev[1].record()
+            events.append(ev)
+        torch.cuda.synchronize()
+        runs[name] = (st, info, [a.elapsed_time(b) for a, b in events])
+    (ref, ref_info, ref_ms), (st, info, ms) = runs["no mesh"], runs["mesh"]
+    control, _, control_ms = runs["no mesh, again"]
+
+    def equal(a, b):
+        return all(torch.equal(a.params[k], b.params[k]) and
+                   torch.equal(a.ema_params[k], b.ema_params[k]) for k in a.params)
+
+    n_params = sum(p.numel() for p in ref.params.values())
+    bucket = torch.randn(n_params + 1, device="cuda")
+    dist.all_reduce(bucket)
+    torch.cuda.synchronize()
+    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    for _ in range(DIST_ALLREDUCE_REPS):
+        dist.all_reduce(bucket)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ar_ms = ev[0].elapsed_time(ev[1]) / DIST_ALLREDUCE_REPS
+    fmt = lambda v: ", ".join(f"{x:.3f}" for x in v)
+    print(f"[dist] (b) QM9 flagship step (B={B}, N={q['n']}, {q['blocks']} blocks of "
+          f"{list(q['units'])}, bf16, EMA, Adam 1e-4, microbatch 4), {DIST_STEPS} updates on "
+          f"injected x0 and t, deterministic algorithms: ms per step by CUDA events without the "
+          f"mesh {fmt(ref_ms)}, with the world-1 mesh {fmt(ms)}, without it again "
+          f"{fmt(control_ms)}; losses {ref_info['loss'].item():.6f} "
+          f"/ {info['loss'].item():.6f}; parameters and EMA bit-equal: {equal(st, ref)} (control, "
+          f"the run without the mesh repeated: {equal(control, ref)}); the gradient all-reduce: "
+          f"one f32 bucket of {n_params + 1} values, {4 * (n_params + 1)} bytes, "
+          f"{ar_ms * 1e3:.1f} us by CUDA events over {DIST_ALLREDUCE_REPS}; on {card}", flush=True)
+    check(equal(control, ref), "(b) the step without the mesh is not repeatable")
+    check(equal(st, ref), "(b) the world-1 mesh step differs from the step without it")
+
+
+def _dist_score(card: str, edge_launches: int) -> None:
+    """(c) ``score`` of the JAX fixture through the world-1 mesh."""
+    import numpy as np
+
+    from ecnf_tpu_torch import score
+
+    fixture = Path(__file__).resolve().parent / JAX_FIXTURE
+    expected = json.loads((fixture / "expected.json").read_text())
+    argv = ["--config", str(Path(__file__).resolve().parent / expected["config"]),
+            "--checkpoint-dir", str(fixture / "model_checkpoints"), "--features", "arange",
+            "--data", str(fixture / "frames.npy"), "--batch-size", str(SERVE_EDGE["B"]),
+            "--device", "cuda", *expected["score_overrides"]]
+    zero_counts()
+    out = score.main(argv)
+    launched = counts()
+    ref = np.asarray(expected["log_p"]["params"])
+    rel = float(np.abs(out["log_p"] - ref).max() / np.abs(ref).max())
+    print(f"[dist] (c) score of {JAX_FIXTURE} through the world-1 mesh: max rel {rel:.3e} of "
+          f"JAX's log p (limit {LOGQ_LIMIT:g}); {launched['edge_tangent']} edge launches (phase "
+          f"15: {edge_launches}); {out['first_batch_seconds']:.3f} s; on {card}", flush=True)
+    check(rel <= LOGQ_LIMIT and np.isfinite(out["log_p"]).all(), f"(c) rel {rel:.3e}")
+    check(launched["edge_tangent"] == edge_launches and launched["egcl"] == 0
+          and launched["fused_trace"] == 0, f"(c) launches {launched}")
+
+
+def _dist_trace(card: str, mesh) -> None:
+    """(d) the sharded exact trace on the ALDP fixture's field at world 1."""
+    from ecnf_tpu_torch.ops.divergence import (
+        sharded_value_and_exact_divergence,
+        value_and_exact_divergence,
+    )
+
+    fixture = Path(__file__).resolve().parent / JAX_FIXTURE
+    expected = json.loads((fixture / "expected.json").read_text())
+    work = Path(__file__).resolve().parent / "build" / "dist"
+    cnf, x, feats = serving_cnf(serving_argv(fixture, expected, slice(None), "cuda", work), "cuda")
+    basis, offset = cnf.exact_trace_plan()
+
+    def f(xb):
+        return cnf.apply(xb, torch.full((xb.shape[0],), DIST_FIELD_T, device="cuda"), feats)
+
+    with torch.no_grad():
+        out = {}
+        for name, fn in (("sharded", lambda: sharded_value_and_exact_divergence(
+                             f, x, mesh, basis=basis, trace_offset=offset)),
+                         ("unsharded", lambda: value_and_exact_divergence(
+                             f, x, basis=basis, trace_offset=offset))):
+            fn()
+            out[name] = (fn(), cuda_ms(fn, 3))
+    (v, div), ms = out["sharded"]
+    (v_ref, div_ref), ref_ms = out["unsharded"]
+    rel = max(rel_err(v, v_ref), rel_err(div, div_ref))
+    print(f"[dist] (d) sharded_value_and_exact_divergence at world 1 on the ALDP fixture's field "
+          f"(B={x.shape[0]}, {basis.shape[0]} zero-CoM columns, f32, t={DIST_FIELD_T}): max rel "
+          f"{rel:.3e} of value_and_exact_divergence (limit {DIST_TRACE_LIMIT:g}); {ms:.2f} ms "
+          f"against {ref_ms:.2f} ms; on {card}", flush=True)
+    check(rel <= DIST_TRACE_LIMIT, f"(d) rel {rel:.3e}")
+
+
+def distributed_child(edge_launches: int) -> None:
+    """Phase 17's child: the port's world-size-1 NCCL path."""
+    import torch.distributed as dist
+
+    from ecnf_tpu_torch.parallel import distributed, mesh as pmesh
+    from ecnf_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    start = time.perf_counter()
+    check(torch.cuda.is_available(), "phase 17 needs a CUDA device")
+    card = card_line()
+    check(distributed.maybe_initialize_distributed(), "(a) no process group was started")
+    backend, world = dist.get_backend(), dist.get_world_size()
+    nccl = ".".join(map(str, torch.cuda.nccl.version()))
+    print(f"[dist] (a) maybe_initialize_distributed: backend {backend}, world size {world}, "
+          f"rank {dist.get_rank()} on cuda:{torch.cuda.current_device()}, NCCL {nccl}; "
+          f"{time.perf_counter() - start:.1f} s; on {card}", flush=True)
+    check(backend == "nccl" and world == 1, f"(a) backend {backend}, world {world}")
+    mesh = pmesh.get_mesh()
+    check(mesh is not None and pmesh.axis_size(mesh) == 1, f"(a) mesh {mesh}")
+    torch.use_deterministic_algorithms(True)
+    _dist_flagship(card, mesh)
+    torch.use_deterministic_algorithms(False)
+    _dist_score(card, edge_launches)
+    _dist_trace(card, mesh)
+    t0 = time.perf_counter()
+    zero_counts()
+    dryrun_multichip(1)
+    print(f"[dist] (e) dryrun_multichip(1) on the card: {time.perf_counter() - t0:.1f} s, "
+          f"launches {counts()}; phase 17's child {time.perf_counter() - start:.1f} s; on {card}",
+          flush=True)
+    dist.destroy_process_group()
+
+
+def phase_distributed(card: str, edge_launches: int) -> None:
+    """Phase 17: `distributed_child` in a process started as a launcher
+    starts one, on a free local port."""
+    import socket
+
+    start = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}", NUM_PROCESSES="1",
+               PROCESS_ID="0", CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--distributed-phase", str(edge_launches)],
+        env=env, capture_output=True, text=True, timeout=DIST_TIMEOUT,
+        cwd=Path(__file__).resolve().parent,
+    )
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0, f"phase 17's child exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    print(f"[dist] phase {time.perf_counter() - start:.1f} s; on {card}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
@@ -2444,8 +2650,9 @@ def main() -> None:
     phase_training_program(et, card)
     phase_qm9_program(et, card)
     phase_aldp_program(et, card)
-    phase_jax_checkpoint(et, card)
+    served = phase_jax_checkpoint(et, card)
     phase_options(card)
+    phase_distributed(card, served["launches"])
 
     # Per kernel, its main-path shapes: the LJ13 structured solve's bf16
     # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches)
@@ -2482,5 +2689,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--distributed-phase"]:
+        distributed_child(int(sys.argv[2]))
+    else:
+        main()
     sys.exit(0)

@@ -16,6 +16,12 @@ from ecnf_tpu_torch.cnf.core import FlowMatchingCNF
 Tensor = torch.Tensor
 
 
+def draw_t(n: int, generator: Optional[torch.Generator], device) -> Tensor:
+    """``t ~ U[0, 1]`` for ``n`` samples, drawn on the generator's device."""
+    gen_device = generator.device if generator is not None else device
+    return torch.rand((n,), generator=generator, device=gen_device).to(device)
+
+
 def flow_matching_loss_fn(
     cnf: FlowMatchingCNF,
     x_data: Tensor,
@@ -36,8 +42,7 @@ def flow_matching_loss_fn(
     if x0 is None:
         x0 = cnf.sample_base((B,), generator=generator)
     if t is None:
-        gen_device = generator.device if generator is not None else x_data.device
-        t = torch.rand((B,), generator=generator, device=gen_device).to(x_data.device)
+        t = draw_t(B, generator, x_data.device)
     x_t, u_t = cnf.get_x_t_and_conditional_u_t(x0, x_data, t)
     if params is None:
         v_t = cnf.apply(x_t, t, features)

@@ -5,6 +5,11 @@ rk4 / Dopri5; the divergence rides in the state as an extra column
 (``[B, D+1]``), so the adaptive error norm covers it too.  Noise comes
 from an explicit ``torch.Generator`` or is injected (``x0``, ``eps``), so
 that a run can be compared with the JAX package on the same inputs.
+
+With a data ``mesh`` (`ecnf_tpu_torch.parallel`) the batch is the global
+one on every rank: the noise is drawn for all of it as a single process
+draws it, each rank solves its rows, and the results are gathered, so
+every rank returns what the single process would.
 """
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -13,12 +18,14 @@ import torch
 
 from ecnf_tpu_torch.cnf.core import FlowMatchingCNF
 from ecnf_tpu_torch.ops.divergence import (
+    sharded_value_and_exact_divergence,
     value_and_exact_divergence,
     value_and_hutchinson_divergence,
     value_and_hutchpp_divergence,
     value_and_multi_probe_hutchinson,
 )
 from ecnf_tpu_torch.ops.ode import ODEStats, odeint
+from ecnf_tpu_torch.parallel.mesh import gather_rows, rows, shard_batch
 
 Tensor = torch.Tensor
 
@@ -91,8 +98,38 @@ def _draw_probes(generator, B: int, D: int, cfg: SolveConfig, device):
     return draw((B, D) if cfg.hutchinson_probes == 1 else (cfg.hutchinson_probes, B, D))
 
 
-def _augmented_field(cnf: FlowMatchingCNF, features, approx: bool, eps, cfg: SolveConfig):
-    """Vector field on the ``[B, D+1]`` (x, log-det) augmented state."""
+def _shard_probes(eps, mesh):
+    """This rank's rows (`parallel.mesh.rows`) of probes ``[B, D]`` or
+    ``[K, B, D]``, or of Hutch++'s pair of them (the batch is their axis
+    -2); None for None."""
+    if eps is None:
+        return None
+    if isinstance(eps, tuple):
+        return tuple(_shard_probes(e, mesh) for e in eps)
+    return rows(eps.movedim(-2, 0), mesh).movedim(0, -2)
+
+
+def _gather(mesh, stats: ODEStats, *per_sample: Tensor):
+    """The ranks' per-sample results joined in rank order, and ``stats``
+    with the most accepted steps of any rank; as they are without a mesh."""
+    if mesh is None:
+        return per_sample, stats
+    steps = gather_rows(torch.tensor([stats.num_steps], device=per_sample[0].device), mesh)
+    gathered = tuple(gather_rows(x, mesh) for x in per_sample)
+    return gathered, stats._replace(num_steps=int(steps.max()))
+
+
+def _augmented_field(
+    cnf: FlowMatchingCNF, features, approx: bool, eps, cfg: SolveConfig, trace_mesh=None
+):
+    """Vector field on the ``[B, D+1]`` (x, log-det) augmented state.
+
+    ``trace_mesh``: a mesh (`ecnf_tpu_torch.parallel`) over whose ``data``
+    ranks the exact trace's columns are split, through ``torch.func``
+    (`sharded_value_and_exact_divergence`), for small-batch scoring; it
+    leaves the structured tangent and the column chunks, as in JAX.  The
+    fused trace comes first and Hutchinson estimates ignore it.
+    """
     if cfg.fused_trace and not approx:
         if cnf.fused_value_and_div is None:
             raise ValueError("fused_trace=True but this CNF has no fused kernel")
@@ -111,6 +148,7 @@ def _augmented_field(cnf: FlowMatchingCNF, features, approx: bool, eps, cfg: Sol
     if (
         cfg.structured_tangent
         and cnf.tangent_value_and_div is not None
+        and trace_mesh is None
         and cfg.trace_column_chunk is None
         and not (approx and cfg.hutchpp_sketch > 0)  # Hutch++ needs J v vectors
     ):
@@ -147,6 +185,10 @@ def _augmented_field(cnf: FlowMatchingCNF, features, approx: bool, eps, cfg: Sol
             v, div = value_and_multi_probe_hutchinson(f_x, x, eps)
         elif approx:
             v, div = value_and_hutchinson_divergence(f_x, x, eps)
+        elif trace_mesh is not None:
+            v, div = sharded_value_and_exact_divergence(
+                f_x, x, trace_mesh, basis=basis, trace_offset=offset
+            )
         else:
             v, div = value_and_exact_divergence(
                 f_x, x, column_chunk=cfg.trace_column_chunk, basis=basis, trace_offset=offset
@@ -164,16 +206,19 @@ def sample_cnf(
     cfg: SolveConfig = SolveConfig(),
     generator: Optional[torch.Generator] = None,
     x0: Optional[Tensor] = None,
+    mesh=None,
 ) -> Tensor:
-    """Draw ``[batch_size, D]`` flow samples by integrating t: 0 -> 1."""
+    """Draw ``[batch_size, D]`` flow samples by integrating t: 0 -> 1
+    (``mesh``: see the module's docstring)."""
+    if x0 is None:
+        x0 = cnf.sample_base((batch_size,), generator=generator)
+    x0, features = shard_batch((x0, features), mesh)
 
     def func(t, y):
         return cnf.apply(y, t, features)
 
-    if x0 is None:
-        x0 = cnf.sample_base((batch_size,), generator=generator)
-    x1, _ = _solve(func, x0, 0.0, 1.0, cfg)
-    return x1
+    x1, stats = _solve(func, x0, 0.0, 1.0, cfg)
+    return _gather(mesh, stats, x1)[0][0]
 
 
 @torch.no_grad()
@@ -186,22 +231,31 @@ def get_log_prob(
     generator: Optional[torch.Generator] = None,
     eps: Optional[Tensor] = None,
     return_stats: bool = False,
+    trace_mesh=None,
+    mesh=None,
 ):
     """Log-density of ``[B, D]`` points by integrating t: 1 -> 0.
 
     Returns ``(log_p, log_prob_base, delta_log_lik)`` (plus `ODEStats`
     when ``return_stats``), with ``log_p = log_prob_base(x0) + delta``.
     ``eps`` injects the Hutchinson probes (``approx=True``): a tensor, or
-    the ``(sketch, probes)`` pair of Hutch++.
+    the ``(sketch, probes)`` pair of Hutch++.  ``trace_mesh`` splits the
+    exact trace's columns over its ranks (`_augmented_field`); every rank
+    of it solves the whole batch.  ``mesh`` splits the batch over its data
+    ranks (see the module's docstring); the stats' ``num_steps`` is then
+    the most of any rank.
     """
     B, D = x.shape
     if approx and eps is None:
         eps = _draw_probes(generator, B, D, cfg, x.device)
-    func = _augmented_field(cnf, features, approx, eps, cfg)
-    y0 = torch.cat([x, torch.zeros((B, 1), dtype=x.dtype, device=x.device)], dim=-1)
+    x, features = shard_batch((x, features), mesh)
+    func = _augmented_field(cnf, features, approx, _shard_probes(eps, mesh), cfg, trace_mesh)
+    y0 = torch.cat([x, torch.zeros((x.shape[0], 1), dtype=x.dtype, device=x.device)], dim=-1)
     y1, stats = _solve(func, y0, 1.0, 0.0, cfg)
     x0, delta_log_lik = y1[:, :-1], y1[:, -1]
-    log_prob_base = cnf.log_prob_base(x0)
+    (log_prob_base, delta_log_lik), stats = _gather(
+        mesh, stats, cnf.log_prob_base(x0), delta_log_lik
+    )
     log_p = log_prob_base + delta_log_lik
     if return_stats:
         return log_p, log_prob_base, delta_log_lik, stats
@@ -219,24 +273,30 @@ def sample_and_log_prob_cnf(
     x0: Optional[Tensor] = None,
     eps: Optional[Tensor] = None,
     return_stats: bool = False,
+    trace_mesh=None,
+    mesh=None,
 ):
     """Sample and score ``[batch_size, D]`` points in one forward solve.
 
     Returns ``(x1, log_q)`` (plus `ODEStats` when ``return_stats``) with
     ``log_q = log_prob_base(x0) - delta``.  ``x0`` (base samples) and
     ``eps`` (probes, or Hutch++'s pair) may be injected; otherwise they are
-    drawn from ``generator``, x0 first.
+    drawn from ``generator``, x0 first.  ``trace_mesh`` and ``mesh`` as in
+    `get_log_prob`.
     """
     if x0 is None:
         x0 = cnf.sample_base((batch_size,), generator=generator)
-    log_prob_base = cnf.log_prob_base(x0)
     B, D = x0.shape
     if approx and eps is None:
         eps = _draw_probes(generator, B, D, cfg, x0.device)
-    func = _augmented_field(cnf, features, approx, eps, cfg)
-    y0 = torch.cat([x0, torch.zeros((B, 1), dtype=x0.dtype, device=x0.device)], dim=-1)
+    x0, features = shard_batch((x0, features), mesh)
+    log_prob_base = cnf.log_prob_base(x0)
+    func = _augmented_field(cnf, features, approx, _shard_probes(eps, mesh), cfg, trace_mesh)
+    y0 = torch.cat([x0, torch.zeros((x0.shape[0], 1), dtype=x0.dtype, device=x0.device)], dim=-1)
     y1, stats = _solve(func, y0, 0.0, 1.0, cfg)
-    x1, delta_log_lik = y1[:, :-1], y1[:, -1]
+    (x1, log_prob_base, delta_log_lik), stats = _gather(
+        mesh, stats, y1[:, :-1], log_prob_base, y1[:, -1]
+    )
     if return_stats:
         return x1, log_prob_base - delta_log_lik, stats
     return x1, log_prob_base - delta_log_lik

@@ -6,7 +6,11 @@ files shared with the JAX examples, read here and never changed);
 ``--local`` applies the debug-scale block below, and ``key=value``
 arguments override any field.  ``--device`` picks the torch device: the
 card unless the CPU is asked for, and without a card the card is refused,
-never replaced.
+never replaced.  Under a launcher (``COORDINATOR_ADDRESS``,
+``NUM_PROCESSES`` and ``PROCESS_ID`` set, one process per card) the process
+joins its group in `parse_args`, before any CUDA work
+(`parallel.distributed.maybe_initialize_distributed`), and the program
+trains data-parallel over it.
 """
 import argparse
 from pathlib import Path
@@ -14,6 +18,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ecnf_tpu_torch.parallel.distributed import maybe_initialize_distributed
 from ecnf_tpu_torch.training.config import ExperimentConfig, load_config
 
 CONFIG_DIR = Path(__file__).resolve().parent.parent.parent / "examples" / "configs"
@@ -40,7 +45,9 @@ LOCAL_OVERRIDES = (
 def parse_args(
     default_config: str, argv: Optional[Sequence[str]] = None
 ) -> Tuple[str, bool, str, list]:
-    """``(config path, --local, device, overrides)`` of the command line."""
+    """``(config path, --local, device, overrides)`` of the command line,
+    after joining the launcher's process group, if any."""
+    maybe_initialize_distributed()
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, default=str(CONFIG_DIR / default_config))
     parser.add_argument("--local", action="store_true",

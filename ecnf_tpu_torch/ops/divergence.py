@@ -4,15 +4,18 @@ These are the forward-mode autodiff routes (``torch.func.jvp`` over the
 field, vmapped over directions).  They serve ``SolveConfig(
 structured_tangent=False)``, a chunked exact trace, Hutch++ and every
 field without a structured tangent (`StableMLP`), and are the oracle of the
-hand-linearised tangent in `ops/tangent.py`.  Within one vmapped JVP the
-primal is computed once (it does not depend on the direction), so a chunk
-of columns costs one primal and its tangent streams.
+hand-linearised tangent in `ops/tangent.py`; the exact route also runs
+with its columns split over the ranks of a mesh.  Within one vmapped JVP
+the primal is computed once (it does not depend on the direction), so a
+chunk of columns costs one primal and its tangent streams.
 """
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import jvp, vmap
+
+from ecnf_tpu_torch.parallel.mesh import all_reduce_sum, axis_size, rows
 
 Tensor = torch.Tensor
 BatchedField = Callable[[Tensor], Tensor]  # [B, D] -> [B, D]
@@ -71,6 +74,43 @@ def value_and_exact_divergence(
         div = torch.zeros((B,), dtype=x.dtype, device=x.device)
         for chunk in basis.split(column_chunk):
             div = div + vmap(col)(chunk).sum(dim=0)
+    if trace_offset is not None:
+        div = div + trace_offset
+    return value, div
+
+
+def sharded_value_and_exact_divergence(
+    f: BatchedField,
+    x: Tensor,
+    mesh,
+    axis_name: str = "data",
+    batch_axis: Optional[str] = None,
+    basis: Optional[Tensor] = None,
+    trace_offset: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor]:
+    """Exact divergence with the trace's columns split over the ranks of a
+    mesh (`ecnf_tpu_torch.parallel`), for small-batch scoring where the
+    columns outnumber the samples.
+
+    ``x [B, D]`` is the whole batch on every rank.  The basis rows
+    (identity when None) are padded with zero rows to a multiple of the
+    ranks along ``axis_name``; each rank takes its block of them and, with
+    ``batch_axis``, its block of the batch, runs `value_and_exact_divergence`
+    on them and sums the partial traces over ``axis_name`` with one
+    ``all_reduce``.  Returns ``(f(x), divergence)`` for this rank's rows
+    (all of them without ``batch_axis``).  ``mesh=None`` (a single process)
+    is `value_and_exact_divergence`.
+    """
+    B, D = x.shape
+    if basis is None:
+        basis = torch.eye(D, dtype=x.dtype, device=x.device)
+    basis = basis.to(x.dtype)
+    n_pad = (-basis.shape[0]) % axis_size(mesh, axis_name)
+    # Zero rows add nothing to the trace.
+    basis = torch.cat([basis, basis.new_zeros((n_pad, D))])
+    x_local = x if batch_axis is None else rows(x, mesh, batch_axis)
+    value, div = value_and_exact_divergence(f, x_local, basis=rows(basis, mesh, axis_name))
+    all_reduce_sum(div, mesh, axis_name)
     if trace_offset is not None:
         div = div + trace_offset
     return value, div

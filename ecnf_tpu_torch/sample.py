@@ -26,6 +26,12 @@ Node features are all zero (DW4, LJ13, QM9) or each atom's index
 (``--features arange``, ALDP).  The first batch, which carries CUDA's
 start-up and the kernels' builds, is timed apart from the steady rate.
 
+Under a launcher (``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and
+``PROCESS_ID``, one process per card) the batch is rounded up to a
+multiple of the processes and shared: every process draws the whole
+batch's base samples (and probes) from the one seed and solves its rows,
+the results are gathered, and rank 0 prints and writes them.
+
 Usage:
     python -m ecnf_tpu_torch.sample --config examples/configs/lj13.yaml \
         --checkpoint-dir runs/lj13/model_checkpoints [--ema] --n-nodes 13 \
@@ -48,6 +54,12 @@ from ecnf_tpu_torch.cnf.build import build_cnf
 from ecnf_tpu_torch.cnf.sampling import SolveConfig, sample_and_log_prob_cnf, sample_cnf
 from ecnf_tpu_torch.convert import from_flax
 from ecnf_tpu_torch.examples.common import CONFIG_DIR
+from ecnf_tpu_torch.parallel.distributed import (
+    is_main_process,
+    maybe_initialize_distributed,
+    print_main,
+)
+from ecnf_tpu_torch.parallel.mesh import axis_size, get_mesh, pad_to_multiple
 from ecnf_tpu_torch.training.checkpoints import get_latest_checkpoint, restore_serving_params
 from ecnf_tpu_torch.training.config import load_config
 from ecnf_tpu_torch.training.setup import _refuse_unported
@@ -147,7 +159,7 @@ def apply_config(parser: argparse.ArgumentParser, args: argparse.Namespace,
     args.checkpoint = get_latest_checkpoint(args.checkpoint_dir)
     if args.checkpoint is None:
         raise SystemExit(f"no checkpoint under {args.checkpoint_dir}")
-    print(f"restoring {args.checkpoint}")
+    print_main(f"restoring {args.checkpoint}")
 
 
 def solve_config(args: argparse.Namespace, fused_trace: bool = False) -> SolveConfig:
@@ -226,16 +238,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the sampler; returns ``samples [n, N*D]``, ``log_q [n]`` (or
     None), ``seconds`` in all, ``first_batch_seconds``,
     ``steady_per_second`` (samples per second after the first batch, None
-    for a single batch) and ``device`` besides printing a summary."""
+    for a single batch) and ``device`` besides printing a summary (rank 0
+    only, which alone writes the files)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.log_prob_output and not args.with_log_prob:
         parser.error("--log-prob-output needs --with-log-prob")
+    maybe_initialize_distributed()
     device = device_from_args(args, "ecnf_tpu_torch.sample")
     apply_config(parser, args, argv)
     cnf = build_from_args(args, device)
     cfg = solve_config(args, fused_trace=args.fused_trace)
-    n, B = args.n_samples, min(args.batch_size, args.n_samples)
+    mesh = get_mesh()
+    n_ranks = axis_size(mesh)
+    n, B = args.n_samples, pad_to_multiple(min(args.batch_size, args.n_samples), n_ranks)
     features = node_features(args, B, device)
     # Noise is drawn on the CPU so one seed gives the same samples on every device.
     generator = torch.Generator().manual_seed(args.seed)
@@ -248,11 +264,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         take = min(B, n - lo)
         if args.with_log_prob:
             x1, lq = sample_and_log_prob_cnf(
-                cnf, B, features, approx=args.approx, cfg=cfg, generator=generator
+                cnf, B, features, approx=args.approx, cfg=cfg, generator=generator, mesh=mesh
             )
             log_q[lo : lo + take] = lq[:take].cpu().numpy()
         else:
-            x1 = sample_cnf(cnf, B, features, cfg=cfg, generator=generator)
+            x1 = sample_cnf(cnf, B, features, cfg=cfg, generator=generator, mesh=mesh)
         samples[lo : lo + take] = x1[:take].cpu().numpy()
         if lo == 0:
             sync(device)
@@ -266,7 +282,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if log_q is not None:
         bad |= ~np.isfinite(log_q)
     if bad.any():
-        print(f"WARNING: {int(bad.sum())}/{n} samples are non-finite")
+        print_main(f"WARNING: {int(bad.sum())}/{n} samples are non-finite")
     extra = ""
     if log_q is not None:
         kind = "Hutchinson" if args.approx else ("exact, fused" if args.fused_trace else "exact")
@@ -275,14 +291,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         rate = f"steady {steady:.1f}/s over the other {n - n_first}"
     else:
         rate = f"{n / first_seconds:.1f}/s (single batch, incl. start-up)"
-    print(
+    print_main(
         f"sampled {n} configurations on {device} in {seconds:.2f}s: first batch of "
         f"{n_first} {first_seconds:.2f}s, {rate} ({args.method}, {args.dtype}){extra}"
+        + (f" over {n_ranks} processes" if mesh is not None else "")
     )
-    if args.output:
+    if args.output and is_main_process():
         np.save(args.output, samples.reshape(n, args.n_nodes, args.dim))
         print(f"wrote {args.output}")
-    if args.log_prob_output:
+    if args.log_prob_output and is_main_process():
         np.save(args.log_prob_output, log_q)
         print(f"wrote {args.log_prob_output}")
     return {

@@ -14,7 +14,9 @@ flags and a solve that is adaptive Dopri5 at the JAX package's defaults
 (rtol = atol = 1e-5) unless ``--method`` asks for fixed steps.  The last
 batch is zero-padded and the padding dropped.  The first batch, which
 carries CUDA's start-up and the kernels' builds, is timed apart from the
-steady rate.
+steady rate.  Under a launcher the batches are shared by the processes as
+in `ecnf_tpu_torch.sample` (the batch rounded up to a multiple of them,
+probes drawn for the whole batch, rank 0 printing and writing).
 
 Usage:
     python -m ecnf_tpu_torch.score --config examples/configs/lj13.yaml \
@@ -32,6 +34,12 @@ import numpy as np
 import torch
 
 from ecnf_tpu_torch.cnf.sampling import get_log_prob
+from ecnf_tpu_torch.parallel.distributed import (
+    is_main_process,
+    maybe_initialize_distributed,
+    print_main,
+)
+from ecnf_tpu_torch.parallel.mesh import axis_size, get_mesh, pad_to_multiple
 from ecnf_tpu_torch.sample import (
     add_config_args,
     add_model_args,
@@ -73,9 +81,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Score the file; returns ``log_p [n]``, ``seconds`` in all,
     ``first_batch_seconds``, ``steady_per_second`` (configurations per
     second after the first batch, None for a single batch) and ``device``
-    besides printing a summary."""
+    besides printing a summary (rank 0 only, which alone writes the file)."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    maybe_initialize_distributed()
     device = device_from_args(args, "ecnf_tpu_torch.score")
     apply_config(parser, args, argv)
     pos = load_positions(args.data)
@@ -83,7 +92,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     x = torch.from_numpy(pos.reshape(n, -1))
     cnf = build_from_args(args, device)
     cfg = solve_config(args)
-    B = min(args.batch_size, n)
+    mesh = get_mesh()
+    n_ranks = axis_size(mesh)
+    B = pad_to_multiple(min(args.batch_size, n), n_ranks)
     features = node_features(args, B, device)
     # Probes are drawn on the CPU so one seed gives the same draws on every device.
     generator = torch.Generator().manual_seed(args.seed)
@@ -97,7 +108,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         if take < B:
             chunk = torch.cat([chunk, torch.zeros((B - take, chunk.shape[1]))])
         log_p = get_log_prob(
-            cnf, chunk.to(device), features, approx=args.approx, cfg=cfg, generator=generator
+            cnf, chunk.to(device), features, approx=args.approx, cfg=cfg, generator=generator,
+            mesh=mesh,
         )[0]
         out[lo : lo + take] = log_p[:take].cpu().numpy()
         if lo == 0:
@@ -108,16 +120,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     steady = (n - B) / (seconds - first_seconds) if n > B else None
 
     kind = "Hutchinson" if args.approx else "exact"
-    print(
+    print_main(
         f"scored {n} configurations in {seconds:.2f}s ({n / seconds:.1f}/s, "
-        f"1 device(s), {kind} trace): mean log-prob {out.mean():.4f}"
+        f"{n_ranks} device(s), {kind} trace): mean log-prob {out.mean():.4f}"
     )
     rate = f"steady {steady:.1f}/s over the other {n - B}" if steady is not None else "single batch"
-    print(f"on {device}: first batch of {B} {first_seconds:.2f}s, {rate} ({args.method}, {args.dtype})")
+    print_main(f"on {device}: first batch of {B} {first_seconds:.2f}s, {rate} ({args.method}, "
+               f"{args.dtype})")
     bad = int((~np.isfinite(out)).sum())
     if bad:
-        print(f"WARNING: {bad}/{n} log-probs are non-finite")
-    if args.output:
+        print_main(f"WARNING: {bad}/{n} log-probs are non-finite")
+    if args.output and is_main_process():
         np.save(args.output, out)
         print(f"wrote {args.output}")
     return {

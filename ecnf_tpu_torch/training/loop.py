@@ -17,6 +17,11 @@ and the trace is written there as a Chrome trace (``trace.json``); a
 resumed run is not traced, as in JAX.  JAX's switch to 64-bit is refused
 by `setup_training`; the option that groups epochs into one dispatch has
 nothing to group in eager PyTorch (`setup_training` ignores it).
+
+Under a process group (`ecnf_tpu_torch.parallel`) every rank runs the loop
+on the same schedule; rank 0 alone prints, traces and writes checkpoints,
+every rank waits at a barrier after each save and restores the same
+checkpoint on resume, and rank 0's runtime-limit decision is every rank's.
 """
 import os
 import pathlib
@@ -26,7 +31,9 @@ from typing import Any, Callable, NamedTuple, Optional, Protocol, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ecnf_tpu_torch.parallel.distributed import barrier, is_main_process, print_main
 from ecnf_tpu_torch.training.checkpoints import (
     get_latest_checkpoint,
     parse_checkpoint_iteration,
@@ -101,10 +108,20 @@ def _stop_profiler(profiler: torch.profiler.profile, profile_dir: str) -> None:
     profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
+def _rank0_decides(stop: bool) -> bool:
+    """Rank 0's ``stop`` on every rank (``stop`` itself in a single process)."""
+    if not dist.is_initialized():
+        return stop
+    box = [stop]
+    dist.broadcast_object_list(box, src=0)
+    return bool(box[0])
+
+
 def run_training(config: TrainConfig) -> Tuple[Logger, TrainingStateT]:
     """Train, evaluate and checkpoint on the schedules; returns the logger
     (closed) and the last state."""
     start_time = time.time()
+    main = is_main_process()
 
     plots_dir = checkpoints_dir = None
     if config.save:
@@ -127,9 +144,9 @@ def run_training(config: TrainConfig) -> Tuple[Logger, TrainingStateT]:
         if latest:
             start_iter = parse_checkpoint_iteration(latest) + 1
             state = restore_checkpoint(latest, state)
-            print(f"loaded checkpoint {latest}")
+            print_main(f"loaded checkpoint {latest}")
         else:
-            print("no checkpoint found, starting training from scratch")
+            print_main("no checkpoint found, starting training from scratch")
 
     epoch_s, eval_s = [], []
     if start_iter == 0 and config.eval_and_plot_fn is not None:
@@ -138,10 +155,10 @@ def run_training(config: TrainConfig) -> Tuple[Logger, TrainingStateT]:
         eval_s.append(perf_counter() - t0)
         eval_info.update(iteration=-1)
         config.logger.write(eval_info)
-        print(f"initial model eval complete, eval info: \n {eval_info}")
+        print_main(f"initial model eval complete, eval info: \n {eval_info}")
 
     profiler = None
-    if config.profile_dir and start_iter == 0:
+    if config.profile_dir and start_iter == 0 and main:
         profiler = _start_profiler(config.profile_dir)
 
     for iteration in range(start_iter, config.n_iteration):
@@ -158,29 +175,32 @@ def run_training(config: TrainConfig) -> Tuple[Logger, TrainingStateT]:
             eval_info = config.eval_and_plot_fn(state, generator, iteration, config.save, plots_dir)
             eval_s.append(perf_counter() - t0)
             eval_info.update(iteration=iteration)
-            print(str(eval_info))
+            print_main(str(eval_info))
             config.logger.write(eval_info)
 
         if iteration in checkpoint_iter and config.save:
-            save_checkpoint(checkpoints_dir, iteration, state)
+            if main:
+                save_checkpoint(checkpoints_dir, iteration, state)
+            barrier()
             # Stop when the time extrapolated to the next checkpoint passes
             # the limit.
             later = checkpoint_iter_np[checkpoint_iter_np > iteration]
             if config.runtime_limit and iteration > start_iter and later.size:
                 hours = (time.time() - start_time) / 3600
                 done = max(iteration - start_iter, 1)
-                if hours * (np.min(later) - start_iter) / done > config.runtime_limit:
+                projected = hours * (np.min(later) - start_iter) / done
+                if _rank0_decides(projected > config.runtime_limit):
                     break
 
     if profiler is not None:
         _stop_profiler(profiler, config.profile_dir)
 
     if epoch_s:
-        print(f"run_training: {len(epoch_s)} epochs in {sum(epoch_s):.1f} s "
-              f"({1e3 * sum(epoch_s) / len(epoch_s):.1f} ms each, the first "
-              f"{1e3 * epoch_s[0]:.1f}); {len(eval_s)} evaluations in "
-              f"{sum(eval_s):.1f} s ({', '.join(f'{v:.2f}' for v in eval_s)}); "
-              f"{time.time() - start_time:.1f} s since the start")
+        print_main(f"run_training: {len(epoch_s)} epochs in {sum(epoch_s):.1f} s "
+                   f"({1e3 * sum(epoch_s) / len(epoch_s):.1f} ms each, the first "
+                   f"{1e3 * epoch_s[0]:.1f}); {len(eval_s)} evaluations in "
+                   f"{sum(eval_s):.1f} s ({', '.join(f'{v:.2f}' for v in eval_s)}); "
+                   f"{time.time() - start_time:.1f} s since the start")
 
     # The JAX loop renders `plot_history` of a `ListLogger`'s history here
     # and discards the figure; nothing is written, so the port has the

@@ -7,8 +7,16 @@ The JAX module builds its evaluation as closures over a config; here the
 evaluation is plain functions of the CNF and the settings, and
 `setup_training` closes over them.  The CNF is evaluated with the
 parameters its field holds, so the caller chooses them (the EMA parameters
-at the end of training).  One card, no mesh.  Figures are SVG
-(`utils.figure`; the card has no matplotlib).
+at the end of training).  Figures are SVG (`utils.figure`; the card has
+no matplotlib).
+
+With a mesh (`ecnf_tpu_torch.parallel`: one process per card, or per CPU
+rank) every rank holds the same state and draws from the same generators;
+an epoch splits each minibatch over the ranks, and an evaluation splits
+each test batch and each batch of model samples, solves its rows and
+gathers the results, so every rank sees the metrics of the whole batch.
+Rank 0 alone logs, prints, draws the figures and writes files.  Without a
+process group (a single process) there is no mesh and none of this runs.
 """
 import copy
 import os
@@ -28,13 +36,21 @@ from ecnf_tpu_torch.cnf.sampling import (
     sample_cnf,
 )
 from ecnf_tpu_torch.ops.numerics import maybe_masked_mean
+from ecnf_tpu_torch.parallel.distributed import is_main_process, print_main
+from ecnf_tpu_torch.parallel.mesh import (
+    axis_size,
+    get_mesh,
+    pad_to_multiple,
+    replicate,
+    shard_batch,
+)
 from ecnf_tpu_torch.training.evaluation import (
     calculate_forward_ess,
     calculate_reverse_ess,
     eval_fn,
 )
 from ecnf_tpu_torch.training.config import ExperimentConfig, config_to_dict
-from ecnf_tpu_torch.training.loggers import WandbLogger, setup_logger
+from ecnf_tpu_torch.training.loggers import ListLogger, WandbLogger, setup_logger
 from ecnf_tpu_torch.training.loop import TrainConfig
 from ecnf_tpu_torch.training.optim import build_optimizer
 from ecnf_tpu_torch.training.state import TrainingState, init_training_state, make_update_fn
@@ -55,14 +71,18 @@ def epoch(
     feats: Optional[Tensor],
     batch_size: int,
     perm: Optional[Tensor] = None,
+    mesh=None,
 ) -> Tuple[TrainingState, Dict[str, Tensor]]:
     """One pass over ``pos [n, D]`` / ``feats [n, N]`` (or None, for a field
     without node features): permute, drop the remainder, and run ``update``
     on each minibatch in turn.
 
     The permutation is drawn from the state's generator unless ``perm``
-    (a permutation of ``n``) is given.  Returns the state and each info
-    key's values stacked over the minibatches.
+    (a permutation of ``n``) is given.  With a ``mesh`` every rank draws
+    the same permutation from its copy of the generator and passes
+    ``update`` its rows of each minibatch (`parallel.shard_batch`).
+    Returns the state and each info key's values stacked over the
+    minibatches.
     """
     n = pos.shape[0]
     n_batches = n // batch_size
@@ -75,7 +95,7 @@ def epoch(
     feat_b = [None] * n_batches if feats is None else feats[perm].reshape(n_batches, batch_size, -1)
     infos = []
     for xb, fb in zip(pos_b, feat_b):
-        state, info = update(state, xb, fb)
+        state, info = update(state, *shard_batch((xb, fb), mesh))
         infos.append(info)
     return state, {key: torch.stack([info[key] for info in infos]) for key in infos[0]}
 
@@ -86,16 +106,19 @@ def init_state_from(
     generator: torch.Generator,
     device,
     use_ema: bool = False,
+    mesh=None,
 ) -> TrainingState:
     """A fresh training state: the field's parameters drawn on the CPU from
     ``generator`` (flax's initial distributions), then the seed of the
-    state's own generator on ``device``, which the train steps draw from."""
+    state's own generator on ``device``, which the train steps draw from.
+    With a ``mesh`` the state (parameters, optimizer moments, EMA and the
+    generator's state) is rank 0's on every rank (`parallel.replicate`)."""
     fresh = copy.deepcopy(cnf.field).cpu()
     fresh.reset_parameters(generator)
     cnf.field.load_state_dict(fresh.state_dict())
     seed = int(torch.randint(0, 2**62, (), generator=generator))
     state_generator = torch.Generator(device=device).manual_seed(seed)
-    return init_training_state(cnf, optimizer, state_generator, use_ema=use_ema)
+    return replicate(init_training_state(cnf, optimizer, state_generator, use_ema=use_ema), mesh)
 
 
 TargetLogProb = Callable[[Tensor], Tensor]  # [B, N, D] -> [B]
@@ -115,6 +138,7 @@ def eval_data_batch(
     cfg: SolveConfig = SolveConfig(),
     generator: Optional[torch.Generator] = None,
     eps: Optional[Tensor] = None,
+    mesh=None,
 ) -> Tuple[Optional[Tensor], Dict[str, Tensor]]:
     """Score one test batch ``data = (pos [B, N*D], features [B, N])``.
 
@@ -124,12 +148,14 @@ def eval_data_batch(
     finite (an ODE sample that diverged or ran out of steps scores NaN),
     with ``eval_ode_steps``, the solve's accepted steps.  The trace is
     exact, or Hutchinson with probes ``eps`` or drawn from ``generator``
-    when ``exact_log_prob`` is False.
+    when ``exact_log_prob`` is False.  With a ``mesh`` the ranks share
+    the batch (`get_log_prob`) and every rank returns the whole batch's
+    results.
     """
     pos_b, feat_b = data
     log_q, log_prob_base, delta_log_lik, stats = get_log_prob(
         cnf, pos_b, feat_b, approx=not exact_log_prob, cfg=cfg,
-        generator=generator, eps=eps, return_stats=True,
+        generator=generator, eps=eps, return_stats=True, mesh=mesh,
     )
     mask = mask * torch.isfinite(log_q).to(mask.dtype)
     info = {
@@ -153,14 +179,25 @@ def model_log_weights(
     generator: Optional[torch.Generator] = None,
     x0: Optional[Tensor] = None,
     eps: Optional[Tensor] = None,
+    mesh=None,
 ) -> Tensor:
     """Reverse log weights ``log p - log q [B]`` of one batch of model
-    samples, one per row of ``features [B, N]``."""
+    samples, one per row of ``features [B, N]``.  With a ``mesh`` the
+    batch is padded (repeating the last row of the features, and of an
+    injected ``x0``) to a multiple of the ranks, the ranks share it
+    (`sample_and_log_prob_cnf`) and the padding is dropped."""
+    B = features.shape[0]
+    padded = pad_to_multiple(B, axis_size(mesh))
+
+    def pad(x):
+        return x if x is None else torch.cat([x, x[-1:].expand(padded - B, -1)])
+
+    features = pad(features)
     samples, log_q = sample_and_log_prob_cnf(
-        cnf, features.shape[0], features, approx=not exact_log_prob, cfg=cfg,
-        generator=generator, x0=x0, eps=eps,
+        cnf, padded, features, approx=not exact_log_prob, cfg=cfg,
+        generator=generator, x0=pad(x0), eps=eps, mesh=mesh,
     )
-    return target_log_prob_fn(_positions(samples, features)) - log_q
+    return (target_log_prob_fn(_positions(samples, features)) - log_q)[:B]
 
 
 def reverse_ess(
@@ -173,18 +210,20 @@ def reverse_ess(
     cfg: SolveConfig = SolveConfig(),
     generator: Optional[torch.Generator] = None,
     x0: Optional[Tensor] = None,
+    mesh=None,
 ) -> Dict[str, Tensor]:
     """``rv_ess`` over ``max(n_model_samples // b, 1)`` batches of ``b =
     min(batch_size, n_model_samples)`` model samples, each with the node
     features ``features_row [N]`` (the first training row).  ``x0 [n_batches,
-    b, D]`` injects the base samples."""
+    b, D]`` injects the base samples.  With a ``mesh`` the ranks share each
+    batch (`model_log_weights`) and every rank holds all the log weights."""
     b = min(batch_size, n_model_samples)
     n_batches = max(n_model_samples // b, 1)
     feats = features_row.reshape(1, -1).repeat(b, 1)
     log_w = torch.cat([
         model_log_weights(
             cnf, target_log_prob_fn, feats, exact_log_prob, cfg, generator,
-            x0=None if x0 is None else x0[i],
+            x0=None if x0 is None else x0[i], mesh=mesh,
         )
         for i in range(n_batches)
     ])
@@ -202,23 +241,26 @@ def evaluate(
     exact_log_prob: bool = True,
     cfg: SolveConfig = SolveConfig(),
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> Dict[str, float]:
     """One evaluation, without the plots: test NLL terms over ``test_pos
     [n, N*D]`` / ``test_features [n, N]`` in padded batches of
     ``batch_size``; with a target, the forward ESS of the test points and,
     given ``n_model_samples``, the reverse ESS of model samples drawn with
     ``features_row``.  Probes and base samples come from ``generator``,
-    test batches first."""
+    test batches first.  With a ``mesh`` the ranks share every batch
+    (``batch_size`` a multiple of its ranks) and each returns the same
+    metrics."""
 
     def batch_free(generator):
         return reverse_ess(
             cnf, target_log_prob_fn, features_row, n_model_samples, batch_size,
-            exact_log_prob, cfg, generator,
+            exact_log_prob, cfg, generator, mesh=mesh,
         )
 
     def on_batch(data, mask, generator):
         return eval_data_batch(
-            cnf, data, mask, target_log_prob_fn, exact_log_prob, cfg, generator
+            cnf, data, mask, target_log_prob_fn, exact_log_prob, cfg, generator, mesh=mesh
         )
 
     with_rv = target_log_prob_fn is not None and n_model_samples is not None
@@ -340,6 +382,7 @@ def setup_training(
     target_log_prob_fn: Optional[TargetLogProb] = None,
     plotter: Optional[Plotter] = None,
     device=None,
+    mesh=None,
 ) -> TrainConfig:
     """The `TrainConfig` of an experiment: ``load_dataset(train_set_size,
     test_set_size) -> (train, test)`` `FullGraphSample`s on ``device``; the
@@ -361,17 +404,32 @@ def setup_training(
     tune XLA compilation and dispatch and are ignored (an eager epoch has
     no dispatch to group); the fields of `_UNPORTED` are refused unless
     at their defaults.
+
+    ``mesh`` (default `parallel.get_mesh`: None in a single process) is
+    the data-parallel mesh of the train steps and the evaluation; the
+    evaluation batch is rounded up to a multiple of its ranks, the padding
+    masked, as in JAX.  Ranks other than 0 log to a `ListLogger` and draw
+    no figures; every rank then takes rank 0's evaluation generator, which
+    the figures drew from.
     """
     _refuse_unported(cfg)
     device = resolve_device(device)
     tcfg = cfg.training
     batch_size = tcfg.batch_size
     set_matmul_precision(tcfg.precision)
+    if mesh is None:
+        mesh = get_mesh()
+    main = is_main_process()
+    n_ranks = axis_size(mesh)
+    eval_batch_size = pad_to_multiple(tcfg.eval_batch_size, n_ranks)
+    if eval_batch_size != tcfg.eval_batch_size:
+        print_main(f"eval_batch_size {tcfg.eval_batch_size} -> {eval_batch_size} "
+              f"(rounded up to the {n_ranks}-device mesh)")
 
     logger = setup_logger(
         cfg.logger, save_dir=tcfg.save_dir or ".", save=tcfg.save,
         experiment_config=config_to_dict(cfg),
-    )
+    ) if main else ListLogger()
     save_path = tcfg.save_dir or "."
     if tcfg.save_in_wandb_dir:
         run = getattr(logger, "run", None)
@@ -422,14 +480,16 @@ def setup_training(
         method=tcfg.ode_method,
     )
     update_fn = make_update_fn(
-        cnf, optimizer, use_ema=tcfg.use_ema, ema_beta=tcfg.ema_beta, microbatch=tcfg.microbatch
+        cnf, optimizer, use_ema=tcfg.use_ema, ema_beta=tcfg.ema_beta, mesh=mesh,
+        microbatch=tcfg.microbatch,
     )
 
     def init_state(generator: torch.Generator) -> TrainingState:
-        return init_state_from(cnf, optimizer, generator, device, tcfg.use_ema)
+        return init_state_from(cnf, optimizer, generator, device, tcfg.use_ema, mesh)
 
     def run_epoch(state: TrainingState):
-        state, infos = epoch(state, update_fn, train_pos_flat, train_features_flat, batch_size)
+        state, infos = epoch(state, update_fn, train_pos_flat, train_features_flat, batch_size,
+                             mesh=mesh)
         return state, {k: v.cpu() for k, v in infos.items()}
 
     # `eval_plots: false` skips the plotting solve.
@@ -452,11 +512,13 @@ def setup_training(
             state = state._replace(params=state.ema_params)
         cnf.field.load_state_dict(state.params)
         info = evaluate(
-            cnf, test_pos_flat, test_features_flat, train_features_flat[0], tcfg.eval_batch_size,
+            cnf, test_pos_flat, test_features_flat, train_features_flat[0], eval_batch_size,
             target_log_prob_fn, tcfg.eval_n_model_samples if with_rv else None,
-            tcfg.eval_exact_log_prob, solve_cfg, generator,
+            tcfg.eval_exact_log_prob, solve_cfg, generator, mesh=mesh,
         )
-        figures = plotter(state, train_data_, generator) if plotter is not None else []
+        figures = plotter(state, train_data_, generator) if plotter is not None and main else []
+        if plotter is not None:
+            replicate(generator, mesh)
         for j, figure in enumerate(figures):
             if save and plots_dir is not None:
                 figure.savefig(plot_path(plots_dir, j, iteration_n))

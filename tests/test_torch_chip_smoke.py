@@ -3,6 +3,7 @@ and prints no result line, so a machine without a card never reports ok.
 Its phase-16 helpers that need no card run here: the estimator statistics,
 the Chrome trace's kernel count, the gradient gap and the CNF that serves
 the StableMLP JAX checkpoint."""
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -24,6 +25,20 @@ def test_chip_smoke_fails_without_cuda():
     assert '"ok"' not in proc.stdout
     assert "no CUDA device" in proc.stderr
 
+
+def test_distributed_phase_fails_without_cuda():
+    """Phase 17's child refuses the CPU before it starts a process group:
+    no gloo stands in for NCCL."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the child would run on it")
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--distributed-phase", "240"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, COORDINATOR_ADDRESS="127.0.0.1:1", NUM_PROCESSES="1", PROCESS_ID="0"),
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and "[dist]" not in proc.stdout
+    assert "phase 17 needs a CUDA device" in proc.stderr
 
 
 def test_estimator_stats_of_known_draws():

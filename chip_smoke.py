@@ -46,8 +46,9 @@ Phases, one or more lines each:
    data, x0 and t, three updates at microbatch 1 and 4 with EMA; (b) the
    QM9 flagship step of the JAX `bench.py` (B=256, bf16, EMA, Adam 1e-4) at
    microbatch 4 and 1: first step apart, then ms per step by CUDA events,
-   steps/s, peak device memory, TFLOP/s against the dense bf16 peak, and
-   the device's busy share in a `torch.profiler` trace of a few steps; (c)
+   steps/s, peak device memory, TFLOP/s and MFU from
+   `ops.flops.count_fn_flops` of one more step, and the device's busy
+   share in a `torch.profiler` trace of a few steps; (c)
    the loss falls on a fixed LJ13 batch through `epoch`;
 11. evaluation (adaptive Dopri5 at the `SolveConfig()` defaults, LJ13
    config width: 3 blocks of [128]*3, hidden 64, batch 64; every solve's
@@ -150,6 +151,17 @@ Phases, one or more lines each:
    edge launch count; (d) `sharded_value_and_exact_divergence` on the
    ALDP fixture's field against `value_and_exact_divergence`; (e)
    `parallel.dryrun.dryrun_multichip(1)` on the card.
+18. FLOP counts (`ecnf_tpu_torch.ops.flops`), each in a call of its own:
+   (a) phase 9's structured rk4 serving solve (bf16, B=48) through the edge
+   kernel and through its plain version, whose counts must be equal, with
+   TFLOP a solve and the MFU of phase 9's median solve time; (b) the same
+   for the fused rk4 solve; the edge kernel at a width it takes
+   zero-padded (U=16), counted as its plain version; (c) phase 10's
+   counts of the QM9 flagship step (taken there) with their TFLOP/s and
+   MFU; (d) phase 11's adaptive f32 evaluation solve, whose count is
+   flagged ``has_while`` and whose MFU is None.  MFU is read against the
+   H100 SXM's published dense peaks (bf16 989 TFLOP/s; f32 as 3xTF32,
+   495 / 3, under the matmul precision "highest" that this script sets).
 
 Bounds: the larger of the bytes a kernel must move (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
@@ -403,36 +415,6 @@ def bound(flop: float, nbytes: float, flops_per_s: float, products: int = 1) -> 
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 flop=flop)
-
-
-def train_step_flops(batch: int, n: int, dim: int, hidden: int, temb: int, units, blocks: int) -> dict:
-    """Matmul FLOP of one flow-matching train step of the EGNN field, as
-    `ecnf_tpu/ops/flops.py: count_fn_flops` counts the JAX update: each
-    forward product, then in the backward one product for the weight and
-    one more for any input that depends on the parameters.  The positions
-    of the first block depend on none; the last block's gate and phi_h feed
-    nothing, so they have no backward.  ``f32`` is the geometry's share
-    (the Gram matrix and the aggregation), the rest runs in the compute
-    dtype.  Microbatching leaves the count unchanged."""
-    P, Q = batch * n * n, batch * n  # edge rows, node rows
-    U = list(units)
-    pairs = list(zip(U[:-1], U[1:]))
-    total = f32 = 0.0
-    for i in range(blocks):
-        first, last = i == 0, i == blocks - 1
-        geo = 2 * P * dim * ((1 if first else 3) + (2 if first else 3))  # gram, w @ x
-        f = 2 * Q * hidden * hidden * 3 + 2 * batch * temb * hidden * 2  # time Dense
-        f += 2 * Q * hidden * U[0] * 3 * 2 + 2 * P * U[0] * (2 if first else 3)  # phi_e first
-        f += sum(2 * P * a * b * 3 for a, b in pairs)  # phi_e tail
-        f += (2 * P * U[-1] * U[0] + sum(2 * P * a * b for a, b in pairs)) * 3  # phi_x
-        f += 2 * P * U[-1] * 3  # phi_x_out
-        gate = 2 * P * U[-1]
-        phi_h = (2 * Q * (U[-1] + hidden) * U[0] + sum(2 * Q * a * b for a, b in pairs)
-                 + 2 * Q * U[-1] * hidden)
-        f += (gate + phi_h) * (1 if last else 3)
-        total += f + geo
-        f32 += geo
-    return dict(total=total, f32=f32)
 
 
 def rate_line(b: dict, ms: float) -> str:
@@ -969,6 +951,8 @@ def _train_flagship(training, card: str) -> dict:
     """(b) the QM9 flagship step at microbatch 4, then 1."""
     import numpy as np
 
+    from ecnf_tpu_torch.ops import flops
+
     optim, state_mod = training
     q = QM9_TRAIN
     B, D = q["batch"], q["n"] * 3
@@ -977,7 +961,6 @@ def _train_flagship(training, card: str) -> dict:
         np.random.default_rng(0).normal(size=(TRAIN_STEPS + 1, B, D)).astype(np.float32)
     ).cuda()
     feats = torch.zeros((B, q["n"]), dtype=torch.int64, device="cuda")
-    flops = train_step_flops(B, q["n"], 3, q["hidden"], 8, q["units"], q["blocks"])
     opt = optim.build_optimizer(1e-4)
     results = {}
     for microbatch in (4, 1):
@@ -1011,9 +994,13 @@ def _train_flagship(training, card: str) -> dict:
             box["st"], _ = update(box["st"], data[0], feats)
 
         kernel_ms, n_kernels = _profile_step(one_step)
-        tflops = flops["total"] / med / 1e9
+        # One more step, counted in a call of its own (never a timed one).
+        count = flops.count_fn_flops(one_step)
+        tflops = count.total / med / 1e9
+        mfu = flops.mfu(count, med / 1e3, torch.cuda.get_device_name(0))
+        check(mfu is not None and 0 < mfu <= 1, f"QM9 train microbatch {microbatch}: MFU {mfu}")
         results[microbatch] = dict(ms=med, first_s=first_s, peak_gb=peak_gb, tflops=tflops,
-                                   busy=kernel_ms / med)
+                                   busy=kernel_ms / med, count=count, mfu=mfu)
         print(
             f"[train] (b) QM9 flagship step (B={B}, N={q['n']}, {q['blocks']} blocks of "
             f"{list(q['units'])}, hidden {q['hidden']}, bf16, EMA, Adam 1e-4), microbatch "
@@ -1021,9 +1008,9 @@ def _train_flagship(training, card: str) -> dict:
             f"by CUDA events: median {med:.3f} ms/step, min {ms[0]:.3f}, max {ms[-1]:.3f}, "
             f"p10-p90 {ms[len(ms) // 10]:.3f}-{ms[(9 * len(ms)) // 10]:.3f}; "
             f"{1e3 / med:.2f} steps/s; peak device memory {peak_gb:.2f} GB; "
-            f"{flops['total'] / 1e12:.4f} TFLOP a step ({flops['f32'] / 1e9:.3f} GFLOP of it f32) "
-            f"-> {tflops:.1f} TFLOP/s, {tflops / (BF16_FLOPS / 1e12):.4f} of the dense bf16 peak "
-            f"(989); profiler over {PROFILE_STEPS} steps: {n_kernels:.0f} device kernels and "
+            f"{count.total / 1e12:.4f} TFLOP a step by count_fn_flops ({count.f32 / 1e9:.3f} GFLOP "
+            f"of it f32) -> {tflops:.1f} TFLOP/s, MFU {mfu:.4f}; profiler over {PROFILE_STEPS} "
+            f"steps: {n_kernels:.0f} device kernels and "
             f"{kernel_ms:.3f} ms of device kernel time a step, busy share {kernel_ms / med:.3f} "
             f"of the median step; last loss {losses[-1].item():.4f}; on {card}",
             flush=True,
@@ -2610,6 +2597,113 @@ def phase_distributed(card: str, edge_launches: int) -> None:
     print(f"[dist] phase {time.perf_counter() - start:.1f} s; on {card}", flush=True)
 
 
+def _counted_solve(sampling, cnf, batch, feats, cfg, x0) -> tuple:
+    """The count of one `sample_and_log_prob_cnf` solve, in a call of its
+    own, and the kernel launches it made."""
+    from ecnf_tpu_torch.ops import flops
+
+    zero_counts()
+    count = flops.count_fn_flops(sampling.sample_and_log_prob_cnf, cnf, batch, feats, cfg=cfg, x0=x0)
+    return count, counts()
+
+
+def _flop_line(count) -> str:
+    return (f"{count.total / 1e12:.4f} TFLOP ({count.bf16 / 1e9:.3f} GFLOP bf16, "
+            f"{count.f32 / 1e9:.3f} GFLOP f32)")
+
+
+def phase_flops(sample, sampling, fused_trace, et, card: str, timing: dict, train: dict) -> None:
+    """Phase 18: `ops.flops.count_fn_flops` on the main paths, each count in
+    a call of its own, and the MFU of the times phases 9 and 10 measured."""
+    from ecnf_tpu_torch.ops import egcl, flops
+
+    start = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    check(kind in flops.PEAKS, f"no published peak for {kind}: MFU is not defined")
+    peaks = flops.PEAKS[kind]
+    print(f"[flops] peaks of {kind}: bf16 {peaks['bf16'] / 1e12:g} TFLOP/s, f32 "
+          f"{flops.f32_peak(peaks) / 1e12:.1f} TFLOP/s (matmul precision "
+          f"{torch.get_float32_matmul_precision()}); on {card}", flush=True)
+
+    def report(name, kernel, plain, ms):
+        mfu = flops.mfu(kernel, ms / 1e3, kind)
+        print(f"[flops] {name}: kernel route {_flop_line(kernel)}, plain route "
+              f"{_flop_line(plain)}, equal: {kernel == plain}; over phase 9's median "
+              f"{ms:.1f} ms a solve: {kernel.total / ms / 1e9:.2f} TFLOP/s, MFU {mfu:.5f}; on {card}",
+              flush=True)
+        check(kernel == plain, f"{name}: kernel route {kernel} != plain route {plain}")
+        check(mfu is not None and 0 < mfu <= 1, f"{name}: MFU {mfu}")
+
+    # (a) phase 9's structured rk4 serving solve, (b) its fused solve.
+    args = sample.build_parser().parse_args(LJ13_ARGS)
+    cnf = sample.build_from_args(args, torch.device("cuda"))
+    feats = torch.zeros((48, 13), dtype=torch.int64, device="cuda")
+    x0 = cnf.sample_base((48,), generator=torch.Generator().manual_seed(4))
+    cfg = sampling.SolveConfig(use_fixed_step_size=True, step_size=0.05, method="rk4")
+    kernel, launched = _counted_solve(sampling, cnf, 48, feats, cfg, x0)
+    plain, launched_p = _counted_solve(
+        sampling, cnf, 48, feats, dataclasses.replace(cfg, structured_tangent_kernel=False), x0)
+    check(launched["edge_tangent"] == RK4_LAUNCHES and launched_p["edge_tangent"] == 0,
+          f"(a) launches {launched} / {launched_p}")
+    report("(a) lj13 rk4 B=48 structured, bf16", kernel, plain, timing["kernel"])
+
+    def fused_plain(x, t, f, weights=None):
+        return fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, weights, use_kernel=False)
+
+    fused_cfg = dataclasses.replace(cfg, fused_trace=True)
+    kernel, launched = _counted_solve(sampling, cnf, 48, feats, fused_cfg, x0)
+    plain, launched_p = _counted_solve(
+        sampling, cnf._replace(fused_value_and_div=fused_plain), 48, feats, fused_cfg, x0)
+    check(launched["fused_trace"] == FUSED_LAUNCHES and launched_p["fused_trace"] == 0,
+          f"(b) launches {launched} / {launched_p}")
+    report("(b) lj13 rk4 B=48 fused, f32", kernel, plain, timing["fused kernel"])
+
+    # The edge kernel at a width it takes zero-padded (`--local` DW4's 16):
+    # the padding adds no FLOP.
+    pad = edge_inputs(K=6, B=4, N=4, U=16, L=3, dtype=torch.bfloat16, seed=19)
+    kernel = flops.count_fn_flops(et.edge_tangent, **pad)
+    plain = flops.count_fn_flops(et.edge_tangent_reference, **pad)
+    print(f"[flops] edge kernel at U=16 (launched at 32, zero-padded): kernel "
+          f"{_flop_line(kernel)}, plain {_flop_line(plain)}, equal: {kernel == plain}", flush=True)
+    check(kernel == plain and kernel.total > 0, f"padded edge count {kernel} != {plain}")
+
+    # (c) phase 10's QM9 flagship step, counted there on one extra step.
+    for microbatch, r in train.items():
+        print(f"[flops] (c) QM9 flagship train step, microbatch {microbatch}: {_flop_line(r['count'])} "
+              f"a step; over phase 10's median {r['ms']:.3f} ms: {r['tflops']:.2f} TFLOP/s, MFU "
+              f"{r['mfu']:.5f}; on {card}", flush=True)
+
+    # (d) phase 11's (a) solve: adaptive, so the count is flagged and has no MFU.
+    cnf = f32_cnf(13, (128,) * 3, 64, 3, seed=12)
+    feats = torch.zeros((EVAL_B, 13), dtype=torch.int64, device="cuda")
+    x0 = cnf.sample_base((EVAL_B,), generator=torch.Generator().manual_seed(13))
+    with SolveRecorder(sampling) as rec:
+        count, launched = _counted_solve(sampling, cnf, EVAL_B, feats, sampling.SolveConfig(), x0)
+    row = rec.rows()[0]
+    mfu = flops.mfu(count, row["ms"] / 1e3, kind)
+    print(f"[flops] (d) lj13 adaptive evaluation solve B={EVAL_B}, f32: {_flop_line(count)} over "
+          f"{row['attempts']} attempts ({row['evals']} field evaluations, {launched['edge_tangent']} "
+          f"edge launches), has_while {count.has_while}, MFU {mfu}; on {card}", flush=True)
+    check(count.has_while and mfu is None and count.total > 0, f"(d) adaptive count {count}, MFU {mfu}")
+    # Each kernel's count per launch at the shapes of PERF.md's kernel table.
+    bf16, f32 = torch.bfloat16, torch.float32
+    per_launch = [
+        (f"edge {name} {str(dt)[6:]}", et.edge_tangent_flops(**shape, dtype=dt))
+        for name, shape, dts in (("lj13", LJ13_EDGE, (bf16, f32)), ("qm9", QM9_EDGE, (bf16, f32)),
+                                 ("qm9 hutchinson", QM9_HUTCH_EDGE, (bf16,)),
+                                 ("aldp hutchinson", ALDP_HUTCH_EDGE, (bf16,)),
+                                 ("serving", SERVE_EDGE, (f32,)), ("dw4", DW4_EDGE, (bf16, f32)))
+        for dt in dts
+    ] + [
+        ("egcl lj13 B=48", egcl.egcl_flops(48, 13, 3, 64, 8, 128, 3)),
+        ("fused lj13 B=48", fused_trace.fused_trace_flops(48, 13, 3, 64, 8, 128, 3, 3)),
+        ("fused qm9 B=64", fused_trace.fused_trace_flops(64, 19, 3, 32, 8, 256, 4, 5)),
+    ]
+    print("[flops] per launch: " + "; ".join(f"{name} {_flop_line(c)}" for name, c in per_launch),
+          flush=True)
+    print(f"[flops] phase {time.perf_counter() - start:.1f} s; on {card}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
@@ -2643,9 +2737,9 @@ def main() -> None:
     egcl_results = phase_egcl(egcl, ode)
     fused = phase_fused_kernel(fused_trace)
     fused_launches = phase_fused_serving(sample, sampling, f32)
-    phase_timing(sample, sampling, fused_trace, card, edge[("lj13", "bfloat16")]["ms"],
-                 fused["lj13"]["ms"])
-    phase_train(card)
+    timing = phase_timing(sample, sampling, fused_trace, card, edge[("lj13", "bfloat16")]["ms"],
+                          fused["lj13"]["ms"])
+    train = phase_train(card)
     phase_evaluation(sampling, score, setup, energies, et, fused_trace, card)
     phase_training_program(et, card)
     phase_qm9_program(et, card)
@@ -2653,6 +2747,7 @@ def main() -> None:
     served = phase_jax_checkpoint(et, card)
     phase_options(card)
     phase_distributed(card, served["launches"])
+    phase_flops(sample, sampling, fused_trace, et, card, timing, train)
 
     # Per kernel, its main-path shapes: the LJ13 structured solve's bf16
     # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches)

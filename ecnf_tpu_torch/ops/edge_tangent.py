@@ -18,7 +18,8 @@ tail, the phi_x chain and the gate, returning ``phi_t [K, B, N, N]`` and
 A thread block of the kernel takes C tangent columns of one (receiver,
 sample); C comes from the kernel's cost model (`default_columns`) unless
 the caller passes ``columns_per_block``.  ``edge_tangent.launch_count``
-counts kernel launches.
+counts kernel launches; while `ops.flops.count_fn_flops` runs, each launch
+adds `edge_tangent_flops` of its unpadded shapes to the count.
 """
 import ctypes
 import functools
@@ -28,6 +29,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ecnf_tpu_torch.ops import flops
 from ecnf_tpu_torch.ops.cuda_build import check_tensor, load_library
 from ecnf_tpu_torch.ops.graph import dense_edge_mask
 
@@ -85,6 +87,17 @@ def edge_tangent_reference(
         dim=3
     ) / math.sqrt(N - 1)
     return phi_t, mi_t
+
+
+def edge_tangent_flops(K: int, B: int, N: int, U: int, L: int, dtype: torch.dtype) -> flops.FlopCount:
+    """Matmul FLOPs of `edge_tangent_reference` at these shapes, as
+    `ops.flops.count_fn_flops` counts them: over the K B N^2 edge rows, the
+    2L - 1 ``[U, U]`` layers and the gate's ``m_t @ g_out`` in ``dtype``, and
+    phi_x's ``p @ x_out`` in f32 (the plain version casts both to f32)."""
+    rows = K * B * N * N
+    return flops.bucket(2.0 * rows * U * (U * (2 * L - 1) + 1), dtype) + flops.FlopCount(
+        f32=2.0 * rows * U
+    )
 
 
 def kernel_units(U: int) -> int:
@@ -236,6 +249,8 @@ def edge_tangent(
             f"U={U} L={L} {cd} columns={cols}"
         )
     edge_tangent.launch_count += 1
+    if flops.counting():
+        flops.add(edge_tangent_flops(K, B, N, U, L, cd))
     return phi_t, mi_t[..., :U]
 
 

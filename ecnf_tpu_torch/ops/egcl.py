@@ -20,7 +20,8 @@ per solve (`egnn_weights`) into one f32 buffer in the order of the JAX
 `_flatten_egcl_weights` (`weight_list`); the higher-level functions take
 ``use_kernel=False`` to run the plain version on any device.
 
-``egcl_fused.launch_count`` counts kernel launches.
+``egcl_fused.launch_count`` counts kernel launches; while
+`ops.flops.count_fn_flops` runs, each launch adds `egcl_flops` to the count.
 """
 import ctypes
 import functools
@@ -28,6 +29,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ecnf_tpu_torch.ops import flops
 from ecnf_tpu_torch.ops.cuda_build import check_tensor, load_library
 from ecnf_tpu_torch.ops.numerics import timestep_embedding
 from ecnf_tpu_torch.ops.tangent import BlockWeights, block_forward, block_weights
@@ -139,6 +141,20 @@ def egcl_reference(
     return vec_out, h_out
 
 
+def egcl_flops(B: int, N: int, D: int, H: int, T: int, U: int, L: int) -> flops.FlopCount:
+    """Matmul FLOPs of `egcl_reference` (one f32 EGNN block forward) with L
+    layers of U units, as `ops.flops.count_fn_flops` counts them."""
+    nodes, edges = B * N, B * N * N
+    mlp = (
+        nodes * H * H + B * T * H  # time ConcatDense
+        + 2 * nodes * H * U  # phi_e's sender and receiver rows
+        + edges * U * U * (2 * L - 1)  # phi_e's tail and phi_x's layers
+        + 2 * edges * U  # phi_x's Dense(1) and the gate
+        + nodes * (U + H) * U + nodes * U * U * (L - 1) + nodes * U * H  # phi_h
+    )
+    return flops.FlopCount(f32=2.0 * (mlp + 2 * edges * D))  # + the Gram matrix and w @ vec
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = load_library("egcl")
@@ -197,6 +213,8 @@ def egcl_fused(
             f"D={D} H={H} T={T} U={U} L={L}"
         )
     egcl_fused.launch_count += 1
+    if flops.counting():
+        flops.add(egcl_flops(B, N, D, H, T, U, L))
     return vec_out, h_out
 
 

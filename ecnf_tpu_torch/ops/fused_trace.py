@@ -17,7 +17,9 @@ every input to f32).
   `ops.tangent` (`egnn_value_and_trace` with the plain edge chain) over the
   N*D identity basis, with no trace offset.
 
-``egnn_value_and_div_fused.launch_count`` counts kernel launches.
+``egnn_value_and_div_fused.launch_count`` counts kernel launches; while
+`ops.flops.count_fn_flops` runs, each launch adds `fused_trace_flops` to the
+count.
 """
 import ctypes
 import functools
@@ -25,8 +27,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from ecnf_tpu_torch.ops import flops
 from ecnf_tpu_torch.ops.cuda_build import check_tensor, load_library
-from ecnf_tpu_torch.ops.egcl import EGNNWeights, egnn_weights
+from ecnf_tpu_torch.ops.edge_tangent import edge_tangent_flops
+from ecnf_tpu_torch.ops.egcl import EGNNWeights, egcl_flops, egnn_weights
 from ecnf_tpu_torch.ops.numerics import timestep_embedding
 from ecnf_tpu_torch.ops.tangent import egnn_value_and_trace
 
@@ -44,6 +48,25 @@ def egnn_value_and_div_reference(
     return egnn_value_and_trace(
         field, x.float(), t, features, basis, use_kernel=False, weights=weights.blocks
     )
+
+
+def fused_trace_flops(B: int, N: int, D: int, H: int, T: int, U: int, L: int,
+                      n_blocks: int) -> flops.FlopCount:
+    """Matmul FLOPs of `egnn_value_and_div_reference` (all f32), as
+    `ops.flops.count_fn_flops` counts them: per block the forward
+    (`ops.egcl.egcl_flops`) and the tangent of its K = N D identity columns
+    (`ops.tangent._block_tangent`), then the trace's sum."""
+    K = N * D
+    nodes, edges = K * B * N, K * B * N * N
+    tangent = 2.0 * (
+        nodes * H * H  # time ConcatDense
+        + 2 * nodes * H * U  # phi_e's sender and receiver rows
+        + 3 * edges * D  # the Gram tangent and the two aggregations
+        + nodes * (U + H) * U + nodes * U * U * (L - 1) + nodes * U * H  # phi_h
+    )
+    block = (egcl_flops(B, N, D, H, T, U, L) + edge_tangent_flops(K, B, N, U, L, torch.float32)
+             + flops.FlopCount(f32=tangent))
+    return block.scaled(n_blocks) + flops.FlopCount(f32=2.0 * B * K * N * D)
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,6 +147,8 @@ def egnn_value_and_div_fused(
             f"B={B} N={N} D={D} H={H} T={T} U={U} L={L} columns={cols}"
         )
     egnn_value_and_div_fused.launch_count += 1
+    if flops.counting():
+        flops.add(fused_trace_flops(B, N, D, H, T, U, L, n_blocks))
     return v, div
 
 

@@ -15,6 +15,8 @@ from typing import Callable, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ecnf_tpu_torch.ops import flops
+
 Tensor = torch.Tensor
 VectorField = Callable[[Tensor, Tensor], Tensor]
 
@@ -184,10 +186,13 @@ def odeint_adaptive(
     checks ``done.all()`` before each attempt, so ``num_attempts`` equals
     the JAX ``while_loop``'s iterations; field evaluations are
     ``2 + 6 * num_attempts`` (the first stage, the initial-step probe,
-    then six per attempt).  ``t1 < t0`` integrates backwards.
+    then six per attempt).  ``t1 < t0`` integrates backwards.  A running
+    `ops.flops.count_fn_flops` is flagged ``has_while``: the attempts
+    depend on the data.
     """
     if t0 == t1:
         return y0, ODEStats(0, 0)
+    flops.note_while()
     direction = 1.0 if t1 > t0 else -1.0
     span = abs(t1 - t0)
     B = y0.shape[0]

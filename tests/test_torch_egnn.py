@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from ecnf_tpu_torch.utils.test_utils import random_rotation_matrix
 
 
 @pytest.mark.parametrize(
@@ -33,7 +34,7 @@ def test_forward_matches_jax(blocks, units, cdt, atol):
 def test_forward_is_translation_and_rotation_equivariant():
     _, _, cnf = tp.make_pair()
     x, t, feats = tp.to_torch(*tp.inputs())
-    q, _ = torch.linalg.qr(torch.randn(3, 3, generator=torch.Generator().manual_seed(0)))
+    q = random_rotation_matrix(torch.Generator().manual_seed(0), 3)
     with torch.no_grad():
         f = cnf.apply(x, t, feats).reshape(-1, tp.N, 3)
         x_rot = (x.reshape(-1, tp.N, 3) @ q.T).reshape(x.shape)

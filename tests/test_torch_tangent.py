@@ -26,6 +26,8 @@ from ecnf_tpu_torch.ops.divergence import (
     value_and_multi_probe_hutchinson,
 )
 from ecnf_tpu_torch.ops.graph import dense_edge_mask
+from ecnf_tpu_torch.ops.tangent import egnn_value_and_trace
+from ecnf_tpu_torch.utils.test_utils import assert_function_is_equivariant, random_rotation_matrix
 
 BLOCKS, UNITS = 3, (32, 32)
 
@@ -133,3 +135,26 @@ def test_planted_fault_fails_parity(fault, cdt, monkeypatch):
     (v, d, v_j, d_j), _ = _run(cdt, per_sample=False)
     with pytest.raises(AssertionError):
         assert_trace_close(v, d, v_j, d_j, cdt)
+
+
+def test_structured_value_is_equivariant_and_trace_invariant():
+    """Rotating a sample rotates the structured route's field and leaves its
+    exact trace over the zero-CoM columns as it was."""
+    _, _, cnf = tp.make_pair(BLOCKS, UNITS, seed=11)
+    _, t, feats = tp.inputs(batch=1, seed=11)
+    tt, ft = tp.to_torch(t, feats)
+    basis, offset = cnf.exact_trace_plan()
+
+    def value_and_trace(pos):
+        v, div = egnn_value_and_trace(cnf.field, pos.reshape(1, -1), tt, ft, basis, offset)
+        return v.reshape(tp.N, tp.DIM), div[0]
+
+    gen = torch.Generator().manual_seed(11)
+    assert_function_is_equivariant(lambda pos: value_and_trace(pos)[0], tp.N, tp.DIM,
+                                   generator=gen, atol=1e-5)
+    x = torch.randn((tp.N, tp.DIM), generator=gen)
+    R = random_rotation_matrix(gen, tp.DIM)
+    div, div_rot = value_and_trace(x)[1], value_and_trace(x @ R.T)[1]
+    assert (div - offset).abs() > 0.1  # the network's share is O(1)
+    torch.testing.assert_close(div_rot, div, rtol=1e-5, atol=1e-5)
+

@@ -31,9 +31,7 @@ import pytest
 import torch
 
 import torch_parity as tp
-from ecnf_tpu.cnf.build import build_cnf as build_jax_cnf
 from ecnf_tpu.cnf.loss import flow_matching_loss_fn as jax_loss_fn
-from ecnf_tpu.ops.flops import count_fn_flops
 from ecnf_tpu.training.optim import build_optimizer as jax_build_optimizer
 from ecnf_tpu.training.state import TrainingState as JaxState
 from ecnf_tpu.training.state import make_update_fn as jax_make_update_fn
@@ -395,31 +393,3 @@ def _chip_smoke():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
-
-
-def test_chip_smoke_train_flops_match_count_fn_flops():
-    # The QM9 flagship step of `chip_smoke.py`'s train phase (B=256,
-    # microbatch 4, bf16), abstractly traced: no compile, no run.
-    smoke = _chip_smoke()
-    q = smoke.QM9_TRAIN
-    cnf = build_jax_cnf(
-        n_frames=q["n"], dim=3, sigma_min=1e-6, base_scale=2.0, n_blocks_egnn=q["blocks"],
-        mlp_units=q["units"], n_invariant_feat_hidden=q["hidden"], time_embedding_dim=8,
-        n_features=1, compute_dtype="bfloat16",
-    )
-    opt = jax_build_optimizer(1e-4)
-    D = q["n"] * 3
-    params = jax.eval_shape(
-        cnf.init, jax.random.PRNGKey(0), jax.ShapeDtypeStruct((2, D), jnp.float32),
-        jax.ShapeDtypeStruct((2,), jnp.float32), jax.ShapeDtypeStruct((2, q["n"]), jnp.int32),
-    )
-    state = JaxState(params, jax.eval_shape(opt.init, params), jax.random.PRNGKey(0), params)
-    update = jax_make_update_fn(cnf, opt, use_ema=True, microbatch=4)
-    ref = count_fn_flops(
-        update, state, jax.ShapeDtypeStruct((q["batch"], D), jnp.float32),
-        jax.ShapeDtypeStruct((q["batch"], q["n"]), jnp.int32),
-    )
-    flops = smoke.train_step_flops(q["batch"], q["n"], 3, q["hidden"], 8, q["units"], q["blocks"])
-    assert flops["total"] == ref.total
-    assert flops["f32"] == ref.f32
-    assert ref.total > 1e12  # ~1.3 TFLOP a step

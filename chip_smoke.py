@@ -1100,13 +1100,12 @@ class SolveRecorder:
         self.sampling._solve = self._solve
 
     def rows(self) -> list:
-        """Per solve: steps, attempts, field evaluations, host syncs, host
-        seconds waiting in them, device ms, rows that came back non-finite,
-        whether it carried the trace."""
+        """Per solve: steps, attempts, field evaluations, host syncs, device
+        ms, rows that came back non-finite, whether it carried the trace."""
         torch.cuda.synchronize()
         return [
             dict(steps=st.num_steps, attempts=st.num_attempts, evals=2 + 6 * st.num_attempts,
-                 syncs=st.num_syncs, sync_s=st.sync_seconds, ms=a.elapsed_time(b),
+                 syncs=st.num_syncs, ms=a.elapsed_time(b),
                  nan_rows=int((~torch.isfinite(y).all(dim=-1)).sum()), rows=y.shape[0],
                  traced=traced)
             for st, a, b, y, traced in self.solves
@@ -1115,8 +1114,8 @@ class SolveRecorder:
 
 def solve_line(r: dict) -> str:
     return (f"{r['steps']} accepted steps, {r['attempts']} attempts, {r['evals']} field "
-            f"evaluations, {r['syncs']} host syncs ({r['sync_s'] * 1e3:.1f} ms waiting), "
-            f"{r['ms']:.1f} ms, {r['nan_rows']}/{r['rows']} rows non-finite")
+            f"evaluations, {r['syncs']} host syncs, {r['ms']:.1f} ms, "
+            f"{r['nan_rows']}/{r['rows']} rows non-finite")
 
 
 def solve_gaps(out: dict, ref: dict) -> dict:
@@ -1333,7 +1332,6 @@ def phase_evaluation(sampling, score, setup, energies, et, fused_trace, card: st
     solve_ms = sum(r["ms"] for r in rows)
     rv_ms = sum(r["ms"] for r in rows[1:])
     edge_launches = launches["(c) bf16 evaluate"]["edge_tangent"]
-    sync_s = sum(r["sync_s"] for r in rows)
     syncs = sum(r["syncs"] for r in rows)
     nan_rows, all_rows = sum(r["nan_rows"] for r in rows), sum(r["rows"] for r in rows)
     print(
@@ -1341,8 +1339,7 @@ def phase_evaluation(sampling, score, setup, energies, et, fused_trace, card: st
         f"{EVAL_RV_SAMPLES} model samples in {len(rows) - 1} batches): "
         + ", ".join(f"{k} {v:.6g}" for k, v in info.items())
         + f"; {len(rows)} solves, {sum(r['attempts'] for r in rows)} attempts, {evals} field "
-        f"evaluations, {edge_launches} edge-kernel launches, {syncs} host syncs "
-        f"({sync_s * 1e3:.1f} ms waiting, {100 * sync_s / (solve_ms / 1e3):.2f}% of the solves), "
+        f"evaluations, {edge_launches} edge-kernel launches, {syncs} host syncs, "
         f"NaN share {nan_rows}/{all_rows}; one batch (the test batch) {rows[0]['ms']:.1f} ms by "
         f"CUDA events; reverse-ESS loop {EVAL_RV_SAMPLES / (rv_ms / 1e3):.1f} samples/s; "
         f"evaluate {wall:.2f} s wall; edge kernel {edge['ms']:.3f} ms a launch at K=36 B={B} bf16 "

@@ -10,6 +10,10 @@ With a data ``mesh`` (`ecnf_tpu_torch.parallel`) the batch is the global
 one on every rank: the noise is drawn for all of it as a single process
 draws it, each rank solves its rows, and the results are gathered, so
 every rank returns what the single process would.
+
+Each public entry is an ``ecnf.solve`` span while a torch profiler runs
+(`ecnf_tpu_torch.utils.spans`): the draws, the weights' packing, the
+solve with its ``ecnf.field`` spans, the base density and the gather.
 """
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -26,6 +30,7 @@ from ecnf_tpu_torch.ops.divergence import (
 )
 from ecnf_tpu_torch.ops.ode import ODEStats, odeint
 from ecnf_tpu_torch.parallel.mesh import gather_rows, rows, shard_batch
+from ecnf_tpu_torch.utils.spans import span
 
 Tensor = torch.Tensor
 
@@ -210,15 +215,16 @@ def sample_cnf(
 ) -> Tensor:
     """Draw ``[batch_size, D]`` flow samples by integrating t: 0 -> 1
     (``mesh``: see the module's docstring)."""
-    if x0 is None:
-        x0 = cnf.sample_base((batch_size,), generator=generator)
-    x0, features = shard_batch((x0, features), mesh)
+    with span("ecnf.solve"):
+        if x0 is None:
+            x0 = cnf.sample_base((batch_size,), generator=generator)
+        x0, features = shard_batch((x0, features), mesh)
 
-    def func(t, y):
-        return cnf.apply(y, t, features)
+        def func(t, y):
+            return cnf.apply(y, t, features)
 
-    x1, stats = _solve(func, x0, 0.0, 1.0, cfg)
-    return _gather(mesh, stats, x1)[0][0]
+        x1, stats = _solve(func, x0, 0.0, 1.0, cfg)
+        return _gather(mesh, stats, x1)[0][0]
 
 
 @torch.no_grad()
@@ -245,21 +251,22 @@ def get_log_prob(
     ranks (see the module's docstring); the stats' ``num_steps`` is then
     the most of any rank.
     """
-    B, D = x.shape
-    if approx and eps is None:
-        eps = _draw_probes(generator, B, D, cfg, x.device)
-    x, features = shard_batch((x, features), mesh)
-    func = _augmented_field(cnf, features, approx, _shard_probes(eps, mesh), cfg, trace_mesh)
-    y0 = torch.cat([x, torch.zeros((x.shape[0], 1), dtype=x.dtype, device=x.device)], dim=-1)
-    y1, stats = _solve(func, y0, 1.0, 0.0, cfg)
-    x0, delta_log_lik = y1[:, :-1], y1[:, -1]
-    (log_prob_base, delta_log_lik), stats = _gather(
-        mesh, stats, cnf.log_prob_base(x0), delta_log_lik
-    )
-    log_p = log_prob_base + delta_log_lik
-    if return_stats:
-        return log_p, log_prob_base, delta_log_lik, stats
-    return log_p, log_prob_base, delta_log_lik
+    with span("ecnf.solve"):
+        B, D = x.shape
+        if approx and eps is None:
+            eps = _draw_probes(generator, B, D, cfg, x.device)
+        x, features = shard_batch((x, features), mesh)
+        func = _augmented_field(cnf, features, approx, _shard_probes(eps, mesh), cfg, trace_mesh)
+        y0 = torch.cat([x, torch.zeros((x.shape[0], 1), dtype=x.dtype, device=x.device)], dim=-1)
+        y1, stats = _solve(func, y0, 1.0, 0.0, cfg)
+        x0, delta_log_lik = y1[:, :-1], y1[:, -1]
+        (log_prob_base, delta_log_lik), stats = _gather(
+            mesh, stats, cnf.log_prob_base(x0), delta_log_lik
+        )
+        log_p = log_prob_base + delta_log_lik
+        if return_stats:
+            return log_p, log_prob_base, delta_log_lik, stats
+        return log_p, log_prob_base, delta_log_lik
 
 
 @torch.no_grad()
@@ -284,19 +291,20 @@ def sample_and_log_prob_cnf(
     drawn from ``generator``, x0 first.  ``trace_mesh`` and ``mesh`` as in
     `get_log_prob`.
     """
-    if x0 is None:
-        x0 = cnf.sample_base((batch_size,), generator=generator)
-    B, D = x0.shape
-    if approx and eps is None:
-        eps = _draw_probes(generator, B, D, cfg, x0.device)
-    x0, features = shard_batch((x0, features), mesh)
-    log_prob_base = cnf.log_prob_base(x0)
-    func = _augmented_field(cnf, features, approx, _shard_probes(eps, mesh), cfg, trace_mesh)
-    y0 = torch.cat([x0, torch.zeros((x0.shape[0], 1), dtype=x0.dtype, device=x0.device)], dim=-1)
-    y1, stats = _solve(func, y0, 0.0, 1.0, cfg)
-    (x1, log_prob_base, delta_log_lik), stats = _gather(
-        mesh, stats, y1[:, :-1], log_prob_base, y1[:, -1]
-    )
-    if return_stats:
-        return x1, log_prob_base - delta_log_lik, stats
-    return x1, log_prob_base - delta_log_lik
+    with span("ecnf.solve"):
+        if x0 is None:
+            x0 = cnf.sample_base((batch_size,), generator=generator)
+        B, D = x0.shape
+        if approx and eps is None:
+            eps = _draw_probes(generator, B, D, cfg, x0.device)
+        x0, features = shard_batch((x0, features), mesh)
+        log_prob_base = cnf.log_prob_base(x0)
+        func = _augmented_field(cnf, features, approx, _shard_probes(eps, mesh), cfg, trace_mesh)
+        zeros = torch.zeros((x0.shape[0], 1), dtype=x0.dtype, device=x0.device)
+        y1, stats = _solve(func, torch.cat([x0, zeros], dim=-1), 0.0, 1.0, cfg)
+        (x1, log_prob_base, delta_log_lik), stats = _gather(
+            mesh, stats, y1[:, :-1], log_prob_base, y1[:, -1]
+        )
+        if return_stats:
+            return x1, log_prob_base - delta_log_lik, stats
+        return x1, log_prob_base - delta_log_lik

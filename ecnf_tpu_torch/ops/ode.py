@@ -7,15 +7,19 @@ The adaptive solver gives each sample its own ``(t, dt, done)`` and an
 I-controller (safety 0.9, factor clipped to [0.2, 10], exponent 1/5), as
 the JAX ``lax.while_loop`` does; here the loop runs on the host and reads
 ``done`` from the device once per attempt.
+
+`odeint` records each field evaluation as an ``ecnf.field`` span and each
+host read of the adaptive loop as an ``ecnf.ode.sync`` span while a torch
+profiler runs (`ecnf_tpu_torch.utils.spans`).
 """
 import math
-import time
 from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from ecnf_tpu_torch.ops import flops
+from ecnf_tpu_torch.utils.spans import span, traced
 
 Tensor = torch.Tensor
 VectorField = Callable[[Tensor, Tensor], Tensor]
@@ -44,13 +48,11 @@ _ERR_EXP = 1.0 / 5.0
 class ODEStats(NamedTuple):
     """Per-solve statistics.  ``num_steps`` is the most accepted steps of
     any sample, ``num_attempts`` the loop iterations.  The adaptive solve
-    also counts its host reads of device values (``num_syncs``) and the
-    host seconds spent waiting in them (``sync_seconds``)."""
+    also counts its host reads of device values (``num_syncs``)."""
 
     num_steps: int
     num_attempts: int
     num_syncs: int = 0
-    sync_seconds: float = 0.0
 
 
 def _rms_norm(x: Tensor) -> Tensor:
@@ -148,17 +150,16 @@ def _initial_step_size(
     return torch.minimum(100.0 * h0, h1)
 
 
-class _SyncClock:
-    """Counts the host's reads of device values and the time spent in them."""
+class _SyncCounter:
+    """Counts the host's reads of device values, each an ``ecnf.ode.sync``
+    span."""
 
     def __init__(self):
         self.count = 0
-        self.seconds = 0.0
 
     def read(self, x: Tensor):
-        start = time.perf_counter()
-        value = x.item()
-        self.seconds += time.perf_counter() - start
+        with span("ecnf.ode.sync"):
+            value = x.item()
         self.count += 1
         return value
 
@@ -206,8 +207,8 @@ def odeint_adaptive(
     done = torch.zeros((B,), dtype=torch.bool, device=y0.device)
     n_accept = torch.zeros((B,), dtype=torch.int32, device=y0.device)
     n_iter = 0
-    clock = _SyncClock()
-    while n_iter < max_steps and not clock.read(done.all()):
+    syncs = _SyncCounter()
+    while n_iter < max_steps and not syncs.read(done.all()):
         remaining = torch.abs(t1 - t)
         dt_mag = torch.minimum(dt, remaining)
         at_min = dt_mag <= dtmin
@@ -241,8 +242,8 @@ def odeint_adaptive(
         n_iter += 1
 
     y1 = torch.where(done[:, None], y, torch.nan)
-    num_steps = int(clock.read(n_accept.max()))
-    return y1, ODEStats(num_steps, n_iter, clock.count, clock.seconds)
+    num_steps = int(syncs.read(n_accept.max()))
+    return y1, ODEStats(num_steps, n_iter, syncs.count)
 
 
 def odeint(
@@ -258,7 +259,9 @@ def odeint(
     max_steps: int = 4096,
     method: str = "dopri5",
 ) -> Tuple[Tensor, ODEStats]:
-    """Fixed-step (``method`` at ``step_size``) or adaptive Dopri5."""
+    """Fixed-step (``method`` at ``step_size``) or adaptive Dopri5; each
+    call of ``func`` is an ``ecnf.field`` span."""
+    func = traced("ecnf.field", func)
     if use_fixed_step_size:
         return odeint_fixed(func, y0, t0, t1, step_size=step_size, method=method)
     return odeint_adaptive(

@@ -13,8 +13,9 @@ each returns values on the host, which waits for the device).  With
 ``profile_dir`` a run that starts at iteration 0 is traced by
 ``torch.profiler`` (the CPU, and the card when there is one) from before
 its first epoch until the epoch that ends at iteration 2 or the run's end,
-and the trace is written there as a Chrome trace (``trace.json``); a
-resumed run is not traced, as in JAX.  JAX's switch to 64-bit is refused
+and the trace is written there as a Chrome trace (``trace.json``), which
+holds the port's spans (`ecnf_tpu_torch.utils.spans`); a resumed run is
+not traced, as in JAX.  JAX's switch to 64-bit is refused
 by `setup_training`; the option that groups epochs into one dispatch has
 nothing to group in eager PyTorch (`setup_training` ignores it).
 

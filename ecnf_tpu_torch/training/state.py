@@ -19,6 +19,7 @@ from ecnf_tpu_torch.cnf.core import FlowMatchingCNF
 from ecnf_tpu_torch.cnf.loss import draw_t, flow_matching_loss_fn
 from ecnf_tpu_torch.parallel.mesh import all_reduce_sum, axis_size, rows
 from ecnf_tpu_torch.training.optim import AdamState, GradientTransformation
+from ecnf_tpu_torch.utils.spans import span, traced
 
 Tensor = torch.Tensor
 
@@ -169,22 +170,26 @@ def make_update_fn(
         params = list(state.params.values())
         x0, t = draw_noise(cnf, x_data.shape[0] * axis_size(mesh), microbatch, state.generator,
                            x_data.device, x0, t)
-        grads, loss = loss_and_grads(
-            cnf, state.params, x_data, features, microbatch, x0=rows(x0, mesh), t=rows(t, mesh)
-        )
+        with span("ecnf.train.grad"):
+            grads, loss = loss_and_grads(
+                cnf, state.params, x_data, features, microbatch, x0=rows(x0, mesh), t=rows(t, mesh)
+            )
         if mesh is not None:
-            grads, loss = mean_over_ranks(grads, loss, mesh)
-        updates, opt_state = optimizer.update(grads, state.opt_state, params)
-        new_params = torch._foreach_add(params, updates)
+            with span("ecnf.train.allreduce"):
+                grads, loss = mean_over_ranks(grads, loss, mesh)
+        with span("ecnf.train.optim"):
+            updates, opt_state = optimizer.update(grads, state.opt_state, params)
+            new_params = torch._foreach_add(params, updates)
         info = {"loss": loss, "grad_norm": global_norm(grads), "update_norm": global_norm(updates)}
         ema_params = state.ema_params
         if use_ema:
-            ema = torch._foreach_mul(list(ema_params.values()), ema_beta)
-            torch._foreach_add_(ema, torch._foreach_mul(new_params, 1.0 - ema_beta))
-            ema_params = dict(zip(names, ema))
+            with span("ecnf.train.ema"):
+                ema = torch._foreach_mul(list(ema_params.values()), ema_beta)
+                torch._foreach_add_(ema, torch._foreach_mul(new_params, 1.0 - ema_beta))
+                ema_params = dict(zip(names, ema))
         return (
             TrainingState(dict(zip(names, new_params)), opt_state, state.generator, ema_params),
             info,
         )
 
-    return update
+    return traced("ecnf.train.step", update)

@@ -119,7 +119,7 @@ def test_odeint_dispatches_to_the_adaptive_solver():
     torch.testing.assert_close(y, y_a, rtol=0, atol=0)
     assert stats[:2] == stats_a[:2] and stats.num_attempts > 0
     _, stats_f = ode.odeint(lambda t, y: -y, y0, 0.0, 1.0, use_fixed_step_size=True)
-    assert stats_f == (20, 20, 0, 0.0)
+    assert stats_f == (20, 20, 0)
 
 
 N_CNF, B_CNF, K = 13, 8, 4

@@ -4,11 +4,11 @@
 Phases, one or more lines each:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
-2. build: compile the three CUDA kernels from ``ecnf_tpu_torch/csrc``, one
+2. build: compile the four CUDA kernels from ``ecnf_tpu_torch/csrc``, one
    nvcc each, all at once, with their register and spill lines and the
-   count of tensor-core (HMMA) instructions in each library
-   (``cuobjdump -sass``); each must have some, since every kernel's dense
-   passes run on the tensor cores (bf16, or f32 in 3xTF32);
+   count of tensor-core (HMMA, and HGMMA for wgmma) instructions in each
+   library (``cuobjdump -sass``); each must have some, since every
+   kernel's dense passes run on the tensor cores (bf16, or f32 in 3xTF32);
 3. kernel vs plain: the edge-tangent kernel against
    `edge_tangent_reference` at the LJ13 and QM9 shapes, in float32 and
    bfloat16, with times, the default columns per thread block and its
@@ -162,6 +162,16 @@ Phases, one or more lines each:
    flagged ``has_while`` and whose MFU is None.  MFU is read against the
    H100 SXM's published dense peaks (bf16 989 TFLOP/s; f32 as 3xTF32,
    495 / 3, under the matmul precision "highest" that this script sets).
+19. the primal edge-chain kernel (`ops/edge_primal.py`; run right after
+   phase 3): at the QM9 Hutchinson shape (B=256, N=19, U=256, L=4, hidden
+   32), at LJ13 (B=48, N=13, U=128, L=3, hidden 64) and at ALDP (B=256,
+   N=22, U=64, L=2, hidden 32), each on block 0's bf16 weights of a CNF of
+   those widths: its time per launch, its bound (the bytes it must move and
+   its products), its share of the bound, the plain version's
+   time and the largest error of each output against plain (limit
+   ``EDGE_LIMITS[bf16]``); then one bf16 rk4 Hutchinson solve at the QM9
+   cell's shape (B=256, step 0.05, 1 probe), whose ``edge_primal`` launches
+   must equal its ``edge_tangent`` launches (5 per field evaluation).
 
 Bounds: the larger of the bytes a kernel must move (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
@@ -216,7 +226,13 @@ EGCL_SHAPES = (
     ("lj13", 13, (128,) * 3, 64, 3, 256),
     ("qm9", 19, (256,) * 4, 32, 5, 64),
 )
-KERNELS = ("edge_tangent", "egcl", "fused_trace")
+KERNELS = ("edge_tangent", "egcl", "fused_trace", "edge_primal")
+# Primal edge-chain phase: (name, B, N, U, L, hidden).
+PRIMAL_SHAPES = (
+    ("qm9_hutch", 256, 19, 256, 4, 32),
+    ("lj13", 48, 13, 128, 3, 64),
+    ("aldp_hutch", 256, 22, 64, 2, 32),
+)
 # Train phase.  (a) the sizes of `tests/test_torch_train.py`; (b) the QM9
 # flagship step of the JAX `bench.py:363-373,412-437`; (c) LJ13 width
 # (`bench.py:352-360`).
@@ -378,10 +394,11 @@ def check(ok: bool, message: str) -> None:
 
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose ``launch_count`` counts its launches."""
-    from ecnf_tpu_torch.ops import edge_tangent, egcl, fused_trace
+    from ecnf_tpu_torch.ops import edge_primal, edge_tangent, egcl, fused_trace
 
     return dict(zip(KERNELS, (
         edge_tangent.edge_tangent, egcl.egcl_fused, fused_trace.egnn_value_and_div_fused,
+        edge_primal.edge_primal,
     )))
 
 
@@ -441,10 +458,11 @@ def _cuobjdump() -> str:
 
 
 def hmma_count(library: Path) -> int:
-    """Tensor-core (HMMA) instructions in a built library's SASS."""
+    """Tensor-core instructions in a built library's SASS: HMMA (mma.sync)
+    and HGMMA (wgmma)."""
     out = subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True, text=True,
                          timeout=300, check=True)
-    return sum(line.count("HMMA") for line in out.stdout.splitlines())
+    return sum(line.count("HMMA") + line.count("HGMMA") for line in out.stdout.splitlines())
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -559,6 +577,93 @@ def phase_kernel_vs_plain(et) -> dict:
                   f"(each within the limit): {' '.join(sweep)}", flush=True)
             del args, kernel, plain
             torch.cuda.empty_cache()
+    return results
+
+
+def primal_inputs(B, N, U, L, hidden, seed):
+    """Block 0's bf16 weights of a CNF of these widths (Dense kernels at
+    N(0, 1/fan_in)) and the primal kernel's inputs from random node
+    features and positions."""
+    from ecnf_tpu_torch.cnf.build import build_cnf
+    from ecnf_tpu_torch.ops import tangent
+
+    cnf = build_cnf(
+        n_frames=N, dim=3, sigma_min=0.01, base_scale=1.0, n_blocks_egnn=1, mlp_units=(U,) * L,
+        n_invariant_feat_hidden=hidden, time_embedding_dim=8, n_features=1,
+        compute_dtype="bfloat16", device="cuda", generator=torch.Generator().manual_seed(seed),
+    )
+    redraw_dense_(cnf.field, seed + 1)
+    wt = tangent.block_weights(cnf.field.egnn, 0, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    hb = torch.randn((B, N, hidden), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.randn((B, N, 3), generator=gen, device="cuda")
+    return hb @ wt.e_s, hb @ wt.e_r, (torch.cdist(pos, pos) ** 2).contiguous(), wt
+
+
+def phase_edge_primal(ep, et, sampling, card: str) -> dict:
+    """Phase 19: the primal edge-chain kernel against its plain version,
+    timed against its bound, and its launches in a bf16 solve."""
+    from h100_bench.metrics.edge_primal_roofline import nbytes as primal_bytes
+
+    results = {}
+    for name, B, N, U, L, hidden in PRIMAL_SHAPES:
+        a, b, l2, wt = primal_inputs(B, N, U, L, hidden, seed=11)
+        kernel = ep.edge_primal(a, b, l2, wt)
+        plain = ep.edge_primal_reference(a, b, l2, wt)
+        torch.cuda.synchronize()
+        errs = {}
+        for key in ("d_e", "d_x", "m", "phi", "g", "gd", "m_i"):
+            ks, ps = getattr(kernel, key), getattr(plain, key)
+            ks, ps = (ks, ps) if isinstance(ks, tuple) else ((ks,), (ps,))
+            errs[key] = max(((k.float() - p.float()).abs().max() / p.float().abs().max()).item()
+                            for k, p in zip(ks, ps))
+        rel = max(errs.values())
+        ms = cuda_ms(lambda: ep.edge_primal(a, b, l2, wt), 20)
+        plain_ms = cuda_ms(lambda: ep.edge_primal_reference(a, b, l2, wt), 5)
+        flop = ep.edge_primal_flops(B, N, U, L, torch.bfloat16).total
+        nb = primal_bytes(B, N, U, L)
+        bd = bound(flop, nb, BF16_FLOPS)
+        print(
+            f"[primal] {name} B={B} N={N} U={U} L={L} bf16: kernel {ms * 1e3:.1f} us, plain "
+            f"{plain_ms * 1e3:.1f} us; bound {bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']}: "
+            f"{nb / 1e6:.1f} MB at 3.35 TB/s {nb / HBM_BYTES_PER_S * 1e6:.1f} us, {flop / 1e9:.3f} "
+            f"GFLOP at 989 TFLOP/s {flop / BF16_FLOPS * 1e6:.1f} us); share "
+            f"{bd['bound_ms'] / ms:.3f}; max err / max |plain| {rel:.3e} (limit "
+            f"{EDGE_LIMITS[torch.bfloat16]:.0e}; "
+            + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f"); on {card}",
+            flush=True,
+        )
+        check(math.isfinite(rel) and rel <= EDGE_LIMITS[torch.bfloat16],
+              f"edge_primal {name}: rel error {rel:.3e}")
+        results[name] = dict(abs_err=rel, ms=ms, plain_ms=plain_ms, **bd)
+        del a, b, l2, wt, kernel, plain
+        torch.cuda.empty_cache()
+
+    # One bf16 rk4 Hutchinson solve at the QM9 cell's shape.
+    from ecnf_tpu_torch.cnf.build import build_cnf
+
+    cnf = build_cnf(n_frames=19, dim=3, sigma_min=1e-6, base_scale=2.0, n_blocks_egnn=5,
+                    mlp_units=(256,) * 4, n_invariant_feat_hidden=32, time_embedding_dim=8,
+                    n_features=1, compute_dtype="bfloat16", device="cuda",
+                    generator=torch.Generator().manual_seed(12))
+    feats = torch.zeros((256, 19), dtype=torch.int64, device="cuda")
+    cfg = sampling.SolveConfig(use_fixed_step_size=True, step_size=0.05, method="rk4",
+                               hutchinson_probes=1)
+    x0 = cnf.sample_base((256,), generator=torch.Generator().manual_seed(13))
+    zero_counts()
+    t0 = time.perf_counter()
+    x1, lq = sampling.sample_and_log_prob_cnf(cnf, 256, feats, approx=True, cfg=cfg, x0=x0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    print(f"[primal] bf16 rk4 Hutchinson solve, QM9 width, B=256: {launched['edge_primal']} "
+          f"edge_primal and {launched['edge_tangent']} edge_tangent launches (expected "
+          f"{20 * 4 * 5} each), {seconds:.3f} s with its first call; on {card}", flush=True)
+    check(bool(torch.isfinite(x1).all() and torch.isfinite(lq).all()), "non-finite bf16 solve")
+    check(launched["edge_primal"] == launched["edge_tangent"] == 20 * 4 * 5,
+          f"bf16 solve launches {launched}")
+    results["solve_launches"] = launched["edge_primal"]
     return results
 
 
@@ -2709,6 +2814,7 @@ def main() -> None:
     from ecnf_tpu_torch.targets import energies
     from ecnf_tpu_torch.training import setup
     from ecnf_tpu_torch.ops import cuda_build, egcl, fused_trace, ode
+    from ecnf_tpu_torch.ops import edge_primal as ep
     from ecnf_tpu_torch.ops import edge_tangent as et
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2723,13 +2829,14 @@ def main() -> None:
         builds = list(pool.map(cuda_build.build_library, KERNELS))
     for name, (path, seconds, log) in zip(KERNELS, builds):
         hmma = hmma_count(path)
-        print(f"[build] {path.name} in {seconds:.1f}s, {hmma} HMMA instructions", flush=True)
+        print(f"[build] {path.name} in {seconds:.1f}s, {hmma} HMMA/HGMMA instructions", flush=True)
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
         check(hmma > 0, f"{name}: no tensor-core instructions")
 
     edge = phase_kernel_vs_plain(et)
+    primal = phase_edge_primal(ep, et, sampling, card)
     launches, f32 = phase_serving(sample, sampling)
     egcl_results = phase_egcl(egcl, ode)
     fused = phase_fused_kernel(fused_trace)
@@ -2747,21 +2854,23 @@ def main() -> None:
     phase_flops(sample, sampling, fused_trace, et, card, timing, train)
 
     # Per kernel, its main-path shapes: the LJ13 structured solve's bf16
-    # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches)
-    # and one LJ13 fused evaluation.  No single PyTorch call computes any
-    # of these functions, so library_ms is null.
+    # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches),
+    # one LJ13 fused evaluation and the QM9 Hutchinson primal edge chain
+    # (one launch; it replaces no Pallas kernel).  No single PyTorch call
+    # computes any of these functions, so library_ms is null.
     rows = (
         ("edge_tangent", "edge_tangent.cu", "tangent_kernel.py:374", launches, edge[("lj13", "bfloat16")]),
         ("egcl_forward", "egcl.cu", "attic/egcl_kernel.py:200", egcl_results["launches"],
          egcl_results[("lj13", 48)]),
         ("fused_trace", "fused_trace.cu", "attic/trace_kernel.py:171", fused_launches, fused["lj13"]),
+        ("edge_primal", "edge_primal.cu", None, primal["solve_launches"], primal["qm9_hutch"]),
     )
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": f"ecnf_tpu_torch/csrc/{source}",
-            "replaces": f"ecnf_tpu/ops/pallas/{replaces}",
+            "replaces": f"ecnf_tpu/ops/pallas/{replaces}" if replaces else None,
             "launches": n,
             "max_abs_err": r["abs_err"],
             "ms": r["ms"],

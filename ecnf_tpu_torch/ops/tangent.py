@@ -3,28 +3,23 @@
 One residual-capturing primal runs per field evaluation; K tangent
 columns are then pushed through each EGNN block by explicit algebra.  The
 geometry and node-level parts are plain torch ops over ``[K, B, ...]``;
-the edge-level chain of each block goes through `ops.edge_tangent`, whose
-CUDA kernel runs when the tensors are on a card.  Forward and trace only:
+the edge-level chains of each block go through `ops.edge_primal` (the
+primal with its residuals) and `ops.edge_tangent`, whose CUDA kernels run
+when the tensors are on a card.  Forward and trace only:
 this path serves the log-density ODE solves, which are never
 differentiated.  Scope: the plain-MLP EGNN.
 """
-import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ecnf_tpu_torch.ops import edge_primal as _primal
 from ecnf_tpu_torch.ops import edge_tangent as _edge
 from ecnf_tpu_torch.ops.graph import dense_edge_mask
 from ecnf_tpu_torch.ops.numerics import timestep_embedding
 
 Tensor = torch.Tensor
-
-
-def _dsilu(x: Tensor) -> Tensor:
-    """d/dx silu(x) = sigmoid(x) * (1 + x * (1 - sigmoid(x)))."""
-    s = torch.sigmoid(x)
-    return s * (1.0 + x * (1.0 - s))
 
 
 class BlockWeights(NamedTuple):
@@ -118,12 +113,15 @@ class BlockResiduals(NamedTuple):
 
 def block_forward(
     vec: Tensor, h: Tensor, temb: Tensor, wt: BlockWeights,
-    normalization_constant: float, with_residuals: bool = True,
+    normalization_constant: float, with_residuals: bool = True, use_kernel: bool = False,
 ) -> Tuple[Tensor, Tensor, Optional[BlockResiduals]]:
     """One EGNN block, time ConcatDense included (the math of
     `models.egnn`, with its casts): ``vec [B, N, D]`` f32 and ``h [B, N, H]``
     f32 before the ConcatDense -> ``(vec_out, h_out, residuals or None)``.
-    The h residual adds the post-ConcatDense h."""
+    The h residual adds the post-ConcatDense h.  The edge chain runs the
+    `edge_primal` kernel when residuals are asked for, ``use_kernel`` is
+    set and `edge_primal.kernel_takes` the tensors (bf16 on a card);
+    otherwise `edge_primal_reference`."""
     B, N, D = vec.shape
     C = normalization_constant
     mask = dense_edge_mask(N, vec.dtype, vec.device)
@@ -140,35 +138,22 @@ def block_forward(
 
     def layer(z, ds):
         if with_residuals:
-            ds.append(_dsilu(z))
+            ds.append(_primal.dsilu(z))
         return F.silu(z)
 
     hb = h.to(cd)
-    z = (
-        (hb @ wt.e_s)[:, None, :, :]
-        + (hb @ wt.e_r)[:, :, None, :]
-        + l2[..., None].to(cd) * wt.e_l
-        + wt.e_b[0]
-    )
-    d_e = []
-    a = layer(z, d_e)
-    for k, bias in zip(wt.e_tail, wt.e_b[1:]):
-        a = layer(a @ k + bias, d_e)
-    m = a
-
-    d_x = []
-    for k, bias in zip(wt.x_tail, wt.x_b):
-        a = layer(a @ k + bias, d_x)
-    phi = (a @ wt.x_out + wt.x_out_b).to(vec.dtype)
+    a, b = hb @ wt.e_s, hb @ wt.e_r
+    if with_residuals and use_kernel and _primal.kernel_takes(
+        a.device, cd, N, a.shape[-1], len(wt.e_b)
+    ):
+        edge = _primal.edge_primal(a, b, l2, wt)
+    else:
+        edge = _primal.edge_primal_reference(a, b, l2, wt, with_residuals)
+    phi, m_i = edge.phi, edge.m_i
 
     w = phi * mask / (C + lengths)
     shifts = w.sum(dim=2)[:, :, None] * vec - torch.einsum("bij,bjd->bid", w, vec)
     vec_out = vec + shifts / (N - 1)
-
-    g = torch.sigmoid(m @ wt.g_out + wt.g_out_b)
-    m_i = ((m * g[..., None]).to(vec.dtype) * mask[None, :, :, None]).sum(
-        dim=2
-    ) / math.sqrt(N - 1)
 
     d_h = []
     a = layer(m_i.to(cd) @ wt.h_m + hb @ wt.h_h + wt.h_b[0], d_h)
@@ -180,7 +165,7 @@ def block_forward(
     if with_residuals:
         res = BlockResiduals(
             vec=vec, l2=l2, active=raw > 0, lengths=lengths, phi=phi, w=w,
-            d_e=tuple(d_e), d_x=tuple(d_x), m=m, g=g, gd=g * (1.0 - g),
+            d_e=edge.d_e, d_x=edge.d_x, m=edge.m, g=edge.g, gd=edge.gd,
             d_h=tuple(d_h),
         )
     return vec_out, h_out, res
@@ -188,17 +173,19 @@ def block_forward(
 
 def egnn_forward_residuals(
     pos: Tensor, h0: Tensor, temb: Tensor, weights: Sequence[BlockWeights],
-    normalization_constant: float, final_scaling: Tensor,
+    normalization_constant: float, final_scaling: Tensor, use_kernel: bool = False,
 ) -> Tuple[Tensor, List[BlockResiduals]]:
     """EGNN torso forward, returning ``(out [B, N, D] f32, per-block
-    residuals)``."""
+    residuals)``; ``use_kernel`` as in `block_forward`."""
     pos_mean = pos.mean(dim=-2, keepdim=True)
     vec = pos - pos_mean
     initial_vec = vec
     h = h0
     residuals = []
     for wt in weights:
-        vec, h, res = block_forward(vec, h, temb, wt, normalization_constant)
+        vec, h, res = block_forward(
+            vec, h, temb, wt, normalization_constant, use_kernel=use_kernel
+        )
         residuals.append(res)
     out = (vec - initial_vec - pos_mean) * final_scaling
     return out, residuals
@@ -294,7 +281,7 @@ def egnn_value_and_trace(
     cd = weights[0].e_s.dtype
     final_scaling = egnn.final_scaling.detach()
     out, residuals = egnn_forward_residuals(
-        pos, h0, temb, weights, egnn.normalization_constant, final_scaling
+        pos, h0, temb, weights, egnn.normalization_constant, final_scaling, use_kernel
     )
     value = out.reshape(B, n_nodes * dim)
 

@@ -8,7 +8,12 @@ float32 and 1e-2 in bfloat16; the whole trace at LJ13 widths and at the
 shipped DW4 (N=4, D=2) and ALDP (N=22, U=64, H=32, per-atom features)
 shapes, ``div - offset`` rtol 1e-4 / atol 1e-5 in float32 and 3e-2 of its
 largest magnitude in bfloat16, and so the Hutchinson route's per-sample
-probes (4 per sample) at QM9 width.  A thread block takes C tangent columns of one
+probes (4 per sample) at QM9 width.  The field value (and x1 of a solve)
+is bit for bit in float32, where both routes share the primal; in bfloat16
+the kernel route's primal runs the `edge_primal` kernel, whose phi_x output
+and sender sum add in their own order (phi may land one bf16 step from the
+plain version's), so the value is held within ``VALUE_BAND`` of its
+largest magnitude.  A thread block takes C tangent columns of one
 (receiver, sample) as C * N rows in 16-row tensor-core tiles: the chunking
 cases put ragged row counts (C * N % 16 != 0), a K that C does not divide,
 and C = 1, the default and the largest C that launches through it.  Widths
@@ -19,6 +24,7 @@ import torch
 
 from ecnf_tpu_torch.cnf.build import build_cnf
 from ecnf_tpu_torch.ops import edge_tangent as et
+from ecnf_tpu_torch.ops.edge_primal import edge_primal
 from torch_edge_inputs import edge_inputs, torch_args
 
 
@@ -165,7 +171,7 @@ def test_trace_through_kernel_matches_plain_on_cuda(cuda, cdt):
     v_p, d_p = cnf.tangent_value_and_div(x, t, f, basis, trace_offset=offset, use_kernel=False)
     d_k, d_p = d_k - offset, d_p - offset
     assert d_p.abs().max() > 0.1
-    torch.testing.assert_close(v_k, v_p, rtol=0, atol=0)  # the primal is shared
+    _value_band(v_k, v_p, cdt)
     if cdt is None:
         torch.testing.assert_close(d_k, d_p, rtol=1e-4, atol=1e-5)
     else:
@@ -200,6 +206,19 @@ def _shipped_cnf(n, dim, blocks, units, hidden, features, cdt, device, batch, se
     return cnf, x, t, row.repeat(batch, 1).to(device)
 
 
+# The bf16 field value's band, kernel route against plain route: about 10x
+# the largest gap read on a card over 24 seeds of each of these tests'
+# configurations (1.03e-4, the QM9 Hutchinson probes; 0 at their own seeds).
+VALUE_BAND = 1e-3
+
+
+def _value_band(v_k, v_p, cdt):
+    if cdt is None:
+        torch.testing.assert_close(v_k, v_p, rtol=0, atol=0)
+    else:
+        assert (v_k - v_p).abs().max() <= VALUE_BAND * v_p.abs().max()
+
+
 def _trace_band(d_k, d_p, cdt):
     if cdt is None:
         torch.testing.assert_close(d_k, d_p, rtol=1e-4, atol=1e-5)
@@ -223,7 +242,7 @@ def test_trace_through_kernel_at_shipped_shapes(cuda, name, n, dim, blocks, unit
     d_k, d_p = d_k - offset, d_p - offset
     # DW4's network trace runs over only 6 columns and stays ~0.03.
     assert torch.isfinite(d_k).all() and d_p.abs().max() > 0.01
-    torch.testing.assert_close(v_k, v_p, rtol=0, atol=0)
+    _value_band(v_k, v_p, cdt)
     _trace_band(d_k, d_p, cdt)
 
 
@@ -239,7 +258,7 @@ def test_hutchinson_probes_through_kernel(cuda, cdt):
     assert et.edge_tangent.launch_count == before + 5
     v_p, d_p = cnf.tangent_value_and_div(x, t, f, probes, use_kernel=False)
     assert torch.isfinite(d_k).all()
-    torch.testing.assert_close(v_k, v_p, rtol=0, atol=0)
+    _value_band(v_k, v_p, cdt)
     _trace_band(d_k, d_p, cdt)
 
 
@@ -252,12 +271,14 @@ def test_hutchinson_solve_launches_the_kernel(cuda):
     x0 = cnf.sample_base((6,), generator=torch.Generator().manual_seed(5))
     eps = torch.randn((4, 6, 15), generator=torch.Generator().manual_seed(6)).to(cuda)
     before = et.edge_tangent.launch_count
+    primal = edge_primal.launch_count
     x1, log_q = sample_and_log_prob_cnf(cnf, 6, f, approx=True, cfg=cfg, x0=x0, eps=eps)
     assert et.edge_tangent.launch_count == before + 4 * 4 * 2  # steps x stages x blocks
+    assert edge_primal.launch_count == primal + 4 * 4 * 2
     plain_cfg = SolveConfig(use_fixed_step_size=True, step_size=0.25, method="rk4",
                             hutchinson_probes=4, structured_tangent_kernel=False)
     x1_p, log_q_p = sample_and_log_prob_cnf(cnf, 6, f, approx=True, cfg=plain_cfg, x0=x0, eps=eps)
-    torch.testing.assert_close(x1, x1_p, rtol=0, atol=0)
+    _value_band(x1, x1_p, "bfloat16")
     assert (log_q - log_q_p).abs().max() <= 3e-2 * log_q_p.abs().max()
 
 

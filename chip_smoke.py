@@ -172,6 +172,13 @@ Phases, one or more lines each:
    ``EDGE_LIMITS[bf16]``); then one bf16 rk4 Hutchinson solve at the QM9
    cell's shape (B=256, step 0.05, 1 probe), whose ``edge_primal`` launches
    must equal its ``edge_tangent`` launches (5 per field evaluation).
+20. both edge kernels past 32 nodes, alone at the LJ55 shape (N=55, the
+   LJ13 network's widths U=128, L=3, hidden 64; run right after phase
+   19): the edge-tangent kernel at the LJ55 cell's launch (K=162 zero-CoM
+   columns, B=16) in bf16, with its cost model's columns per thread block
+   and plan and the time at every column count that launches, and in f32
+   at B=2; the primal kernel at B=16 on block 0's bf16 weights; each
+   against its plain version (limits ``EDGE_LIMITS``) and its bound.
 
 Bounds: the larger of the bytes a kernel must move (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
@@ -233,6 +240,10 @@ PRIMAL_SHAPES = (
     ("lj13", 48, 13, 128, 3, 64),
     ("aldp_hutch", 256, 22, 64, 2, 32),
 )
+# Phase 20: the LJ55 cell's edge-tangent launch, and the f32 batch that
+# keeps the plain version's [K, B, N, N, U] f32 tensors to a few GB.
+LJ55_EDGE = dict(K=162, B=16, N=55, U=128, L=3)
+LJ55_F32_BATCH = 2
 # Train phase.  (a) the sizes of `tests/test_torch_train.py`; (b) the QM9
 # flagship step of the JAX `bench.py:363-373,412-437`; (c) LJ13 width
 # (`bench.py:352-360`).
@@ -665,6 +676,70 @@ def phase_edge_primal(ep, et, sampling, card: str) -> dict:
           f"bf16 solve launches {launched}")
     results["solve_launches"] = launched["edge_primal"]
     return results
+
+
+def phase_lj55(ep, et, card: str) -> None:
+    """Phase 20: both edge kernels alone at the LJ55 shape, against their
+    plain versions and their bounds."""
+    from h100_bench.metrics.edge_primal_roofline import nbytes as primal_bytes
+
+    for dtype, batch in ((torch.bfloat16, LJ55_EDGE["B"]), (torch.float32, LJ55_F32_BATCH)):
+        shape = dict(LJ55_EDGE, B=batch)
+        K, B, N, U, L = (shape[k] for k in ("K", "B", "N", "U", "L"))
+        args = edge_inputs(**shape, dtype=dtype, seed=21)
+        kernel = et.edge_tangent(**args)
+        plain = et.edge_tangent_reference(**args)
+        torch.cuda.synchronize()
+        abs_err, rel = edge_errors(kernel, plain)
+        ms = cuda_ms(lambda: et.edge_tangent(**args), 5)
+        plain_ms = cuda_ms(lambda: et.edge_tangent_reference(**args), 2)
+        name = str(dtype).replace("torch.", "")
+        b = bound(edge_flop(B * N * N, K, L, U), nbytes(args, kernel),
+                  *((BF16_FLOPS, 1) if dtype == torch.bfloat16 else (TF32_FLOPS, 3)))
+        cols = et.default_columns(0, dtype, K, B, N, U, L)
+        plan = et.launch_plan(0, dtype, K, B, N, U, L, cols)
+        sweep = []
+        for c in range(1, K + 1):
+            try:
+                et.launch_plan(0, dtype, K, B, N, U, L, c)
+            except ValueError:
+                break
+            run = lambda: et.edge_tangent(**args, columns_per_block=c)
+            _, rel_c = edge_errors(run(), plain)
+            check(math.isfinite(rel_c) and rel_c <= EDGE_LIMITS[dtype],
+                  f"edge_tangent lj55 {name} columns {c}: rel error {rel_c:.3e}")
+            sweep.append(f"{c}:{cuda_ms(run, 2):.3f}")
+        print(
+            f"[lj55] edge_tangent {shape} {name}: max_abs_err={abs_err:.3e} rel={rel:.3e} "
+            f"(limit {EDGE_LIMITS[dtype]:.0e}) kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us "
+            f"{rate_line(b, ms)}; {cols} columns per thread block: {plan['smem_bytes']} B of "
+            f"shared memory, {plan['blocks_per_sm']} blocks per SM, {plan['row_tiles']} row tiles "
+            f"per warp, staged={plan['staged']}; ms by columns per block: {' '.join(sweep)}; "
+            f"on {card}",
+            flush=True,
+        )
+        check(math.isfinite(rel) and rel <= EDGE_LIMITS[dtype],
+              f"edge_tangent lj55 {name} rel error {rel:.3e}")
+        del args, kernel, plain
+        torch.cuda.empty_cache()
+
+    B, N, U, L = LJ55_EDGE["B"], LJ55_EDGE["N"], LJ55_EDGE["U"], LJ55_EDGE["L"]
+    a, b, l2, wt = primal_inputs(B, N, U, L, 64, seed=22)
+    kernel = ep.edge_primal(a, b, l2, wt)
+    plain = ep.edge_primal_reference(a, b, l2, wt)
+    torch.cuda.synchronize()
+    rel = max(((k.float() - p.float()).abs().max() / p.float().abs().max()).item()
+              for k, p in zip([*kernel.d_e, *kernel.d_x, *kernel[2:]],
+                              [*plain.d_e, *plain.d_x, *plain[2:]]))
+    ms = cuda_ms(lambda: ep.edge_primal(a, b, l2, wt), 20)
+    plain_ms = cuda_ms(lambda: ep.edge_primal_reference(a, b, l2, wt), 5)
+    flop = ep.edge_primal_flops(B, N, U, L, torch.bfloat16).total
+    bd = bound(flop, primal_bytes(B, N, U, L), BF16_FLOPS)
+    print(f"[lj55] edge_primal B={B} N={N} U={U} L={L} bf16: kernel {ms * 1e3:.1f} us, plain "
+          f"{plain_ms * 1e3:.1f} us; {rate_line(bd, ms)}; max err / max |plain| {rel:.3e} "
+          f"(limit {EDGE_LIMITS[torch.bfloat16]:.0e}); on {card}", flush=True)
+    check(math.isfinite(rel) and rel <= EDGE_LIMITS[torch.bfloat16],
+          f"edge_primal lj55: rel error {rel:.3e}")
 
 
 def redraw_dense_(field, seed: int) -> None:
@@ -2837,6 +2912,7 @@ def main() -> None:
 
     edge = phase_kernel_vs_plain(et)
     primal = phase_edge_primal(ep, et, sampling, card)
+    phase_lj55(ep, et, card)
     launches, f32 = phase_serving(sample, sampling)
     egcl_results = phase_egcl(egcl, ode)
     fused = phase_fused_kernel(fused_trace)

@@ -34,8 +34,10 @@
 //   R = floor(128 / N)), which are R N consecutive rows of every
 //   [B, N, N, U] output, and m_i sums each receiver's N senders inside the
 //   block, in sender order, in f32, with no atomics: two runs agree bit for
-//   bit.  The blocks that fill whole waves of the card take R receivers;
-//   the receivers left over are spread over one more wave of smaller blocks
+//   bit.  Up to N = 64 (kMaxEdgeNodes) a block holds R >= 2 whole
+//   receivers (LJ55: two, 110 of the 128 rows), so no sum spans blocks.
+//   The blocks that fill whole waves of the card take R receivers; the
+//   receivers left over are spread over one more wave of smaller blocks
 //   (`make_grid`), so that the last wave does not run a few full blocks on
 //   a mostly idle card (QM9: 792 blocks of 6 and 112 of 1, not 811 of 6).
 // - Products: Hopper's warpgroup MMA (wgmma.mma_async m64nNk16, bf16 in,
@@ -519,7 +521,7 @@ const void* kernel_for(int U) {
 }
 
 bool supported(int B, int N, int U, int L) {
-  return B >= 1 && N >= 2 && N <= kMaxNodes && L >= 1 && L <= kMaxLayers &&
+  return B >= 1 && N >= 2 && N <= kMaxEdgeNodes && L >= 1 && L <= kMaxLayers &&
          (U == 32 || U == 64 || U == 128 || U == 256) &&
          static_cast<long long>(B) * N <= (1 << 30);
 }
@@ -572,7 +574,7 @@ int slots(const void* fn, int smem) {
 
 }  // namespace
 
-// Shapes and layouts as in Args; U in {32, 64, 128, 256}, 2 <= N <= 32,
+// Shapes and layouts as in Args; U in {32, 64, 128, 256}, 2 <= N <= 64,
 // 1 <= L <= 8, every [.., U] pointer 16-byte aligned; the caller
 // validates.  e_b, x_b: L pointers each; e_tail: L - 1; x_tail: L; d_e,
 // d_x: L each.  Returns a cudaError_t (0 on success) from the launch.

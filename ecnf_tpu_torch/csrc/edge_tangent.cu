@@ -31,15 +31,17 @@
 //
 // - Grid: a thread block owns (receiver i, sample b, a chunk of C tangent
 //   columns), and stacks the N sender rows of its C columns as rows
-//   r = c N + j of one tile, cut into 16-row tiles.  The grid is
-//   (ceil(K / C), N, B), chunks fastest, so the blocks that share one
-//   (i, b)'s residual rows run side by side and find them in L2.  The sum
-//   over senders for mi_t runs inside the block, in sender order, with no
-//   atomics: two runs agree bit for bit.  C comes from a cost model
-//   (`ecnf_edge_tangent_columns`): the waves of work, layers x row tiles
-//   of a block's busiest warp summed over the blocks and divided by the
-//   blocks that run at once (the occupancy calculator's blocks per SM, so
-//   the shared memory and registers count).
+//   r = c N + j of one tile, cut into 16-row tiles; a column's N senders
+//   span ceil(N / 16) or more tiles, so N is bounded by the shared memory
+//   and registers, not by a warp (kMaxEdgeNodes = 64; at LJ55 a column
+//   is 55 rows).  The grid is (ceil(K / C), N, B), chunks fastest, so the
+//   blocks that share one (i, b)'s residual rows run side by side and find
+//   them in L2.  The sum over senders for mi_t runs inside the block, in
+//   sender order, with no atomics: two runs agree bit for bit.  C comes
+//   from a cost model (`ecnf_edge_tangent_columns`): the waves of work,
+//   layers x row tiles of a block's busiest warp summed over the blocks
+//   and divided by the blocks that run at once (the occupancy
+//   calculator's blocks per SM, so the shared memory and registers count).
 // - bf16 (the serving dtype): `dense_bf16` (dense_bf16.cuh), mma.sync
 //   m16n8k16 bf16 -> f32 from ldmatrix fragments, with the weights of all
 //   2L - 1 layers streamed through one cp.async ring.  The accumulators
@@ -70,7 +72,10 @@
 //   LJ13 bf16: C = 18, 211,072 B, 1 block of 512 threads, 4 row tiles a warp;
 //   LJ13 f32:  C = 7, 99,328 B, 2 blocks of 256, 3 row tiles, residuals global;
 //   QM9 bf16:  C = 5, 191,104 B, 1 block of 512, 3 row tiles;
-//   QM9 f32:   C = 2, 89,856 B, 2 blocks of 256, 3 row tiles, residuals global.
+//   QM9 f32:   C = 2, 89,856 B, 2 blocks of 256, 3 row tiles, residuals global;
+//   LJ55 bf16 (K = 162, B = 16, N = 55): C = 3, 206,464 B, 1 block of 512,
+//   3 row tiles (C = 4 would take 235,776 B);
+//   LJ55 f32:  C = 1, 79,872 B, 2 blocks of 256, 2 row tiles, residuals global.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -618,7 +623,7 @@ Config configure(int K, int N, int U, int L, int C) {
 }
 
 bool supported(int K, int B, int N, int U, int L) {
-  return K >= 1 && B >= 1 && B <= 65535 && N >= 2 && N <= kMaxNodes && L >= 1 &&
+  return K >= 1 && B >= 1 && B <= 65535 && N >= 2 && N <= kMaxEdgeNodes && L >= 1 &&
          L <= kMaxLayers && (U == 32 || U == 64 || U == 128 || U == 256);
 }
 
@@ -727,7 +732,7 @@ extern "C" int ecnf_edge_tangent_plan(int dtype, int K, int B, int N, int U, int
 
 // dtype: 0 = float32, 1 = bfloat16.  Shapes and layouts as in Args; C
 // columns per thread block (`ecnf_edge_tangent_columns` or the caller's).
-// Requires 2 <= N <= 32, U in {32, 64, 128, 256}, 1 <= L <= 8, every
+// Requires 2 <= N <= 64, U in {32, 64, 128, 256}, 1 <= L <= 8, every
 // pointer 32-byte aligned; the caller validates.  Returns a cudaError_t
 // (0 on success) from the launch; cudaErrorInvalidConfiguration for a C
 // that does not launch.

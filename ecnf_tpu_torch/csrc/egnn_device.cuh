@@ -32,7 +32,11 @@
 namespace ecnf {
 
 constexpr int kMaxLayers = 8;
-constexpr int kMaxNodes = 32;
+constexpr int kMaxNodes = 32;  // the EGCL and fused-trace kernels: a sample's N nodes a block
+// The edge kernels (edge_tangent.cu, edge_primal.cu) hold only the sender
+// rows of one or a few receivers in a block, cut into row tiles, so they
+// take more nodes than the EGCL and fused-trace kernels.
+constexpr int kMaxEdgeNodes = 64;
 constexpr int kMaxDim = 4;
 constexpr int kStageFloats = 4096;  // one weight chunk, 16 KB
 constexpr int kStages = 3;  // chunks in flight or in use

@@ -43,7 +43,7 @@ from ecnf_tpu_torch.ops.graph import dense_edge_mask
 Tensor = torch.Tensor
 
 _MAX_LAYERS = 8
-_MAX_NODES = 32
+_MAX_NODES = 64  # the kernel's kMaxEdgeNodes
 _MAX_UNITS = 256
 
 
@@ -119,7 +119,7 @@ def edge_primal_flops(B: int, N: int, U: int, L: int, dtype: torch.dtype) -> flo
 
 
 def _shapes_taken(N: int, U: int, L: int) -> bool:
-    """2 <= N <= 32, U <= 256 (zero-padded to a width the kernel takes),
+    """2 <= N <= 64, U <= 256 (zero-padded to a width the kernel takes),
     1 <= L <= 8."""
     return 2 <= N <= _MAX_NODES and 1 <= U <= _MAX_UNITS and 1 <= L <= _MAX_LAYERS
 
@@ -160,7 +160,7 @@ def edge_primal(a: Tensor, b: Tensor, l2: Tensor, wt) -> EdgePrimal:
     contract).
 
     The kernel takes bf16 only: ``a``, ``b`` and the weights bf16, ``l2``
-    f32, every tensor contiguous, 2 <= N <= 32, U <= 256, 1 <= L <= 8; it
+    f32, every tensor contiguous, 2 <= N <= 64, U <= 256, 1 <= L <= 8; it
     raises on anything else, on any device.  CPU tensors then take the
     plain version; CUDA tensors launch the kernel on the current stream,
     without synchronising.

@@ -16,10 +16,13 @@ tail, the phi_x chain and the gate, returning ``phi_t [K, B, N, N]`` and
   torch ops, which is also the kernel's oracle.
 
 A thread block of the kernel takes C tangent columns of one (receiver,
-sample); C comes from the kernel's cost model (`default_columns`) unless
-the caller passes ``columns_per_block``.  ``edge_tangent.launch_count``
-counts kernel launches; while `ops.flops.count_fn_flops` runs, each launch
-adds `edge_tangent_flops` of its unpadded shapes to the count.
+sample), the N sender rows of each, for 2 <= N <= 64; C comes from the
+kernel's cost model (`default_columns`) unless the caller passes
+``columns_per_block``.  Shapes with no C that fits the card's shared
+memory and registers raise (in float32: U = 256 past 48 nodes).
+``edge_tangent.launch_count`` counts kernel launches; while
+`ops.flops.count_fn_flops` runs, each launch adds `edge_tangent_flops` of
+its unpadded shapes to the count.
 """
 import ctypes
 import functools
@@ -37,7 +40,7 @@ Tensor = torch.Tensor
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_LAYERS = 8
-_MAX_NODES = 32
+_MAX_NODES = 64  # the kernel's kMaxEdgeNodes
 _UNITS = (32, 64, 128, 256)
 
 
@@ -186,9 +189,9 @@ def edge_tangent(
     CPU tensors take the plain version.  CUDA tensors launch the kernel on
     the current stream, without synchronising; the arguments must match
     the documented shapes exactly, be contiguous and share one dtype
-    (float32 or bfloat16; ``l2_t`` is always float32).  A U of at most 256
-    that the kernel does not take is zero-padded (`pad_units`), which
-    leaves the outputs as they are.
+    (float32 or bfloat16; ``l2_t`` is always float32), with 2 <= N <= 64.
+    A U of at most 256 that the kernel does not take is zero-padded
+    (`pad_units`), which leaves the outputs as they are.
     ``columns_per_block`` overrides the kernel's choice of tangent columns
     per thread block; it must be at least 1, and a value that does not
     launch raises.  The outputs do not depend on it beyond the order of

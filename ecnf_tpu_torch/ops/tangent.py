@@ -18,6 +18,7 @@ from ecnf_tpu_torch.ops import edge_primal as _primal
 from ecnf_tpu_torch.ops import edge_tangent as _edge
 from ecnf_tpu_torch.ops.graph import dense_edge_mask
 from ecnf_tpu_torch.ops.numerics import timestep_embedding
+from ecnf_tpu_torch.utils.spans import span
 
 Tensor = torch.Tensor
 
@@ -267,6 +268,10 @@ def egnn_value_and_trace(
     Both are exact for arbitrary directions: the seed is the zero-CoM
     projection and the translation component is reconstructed in the
     epilogue (the EGNN is translation-structured).
+
+    While a profiler runs, the residual-capturing forward over the blocks
+    is an ``ecnf.field.primal`` span and the tangent pass over the blocks
+    an ``ecnf.field.tangent`` span (`utils.spans`).
     """
     egnn = field.egnn
     n_nodes, dim = field.n_nodes, field.dim
@@ -280,9 +285,10 @@ def egnn_value_and_trace(
         weights = trace_weights(field)
     cd = weights[0].e_s.dtype
     final_scaling = egnn.final_scaling.detach()
-    out, residuals = egnn_forward_residuals(
-        pos, h0, temb, weights, egnn.normalization_constant, final_scaling, use_kernel
-    )
+    with span("ecnf.field.primal"):
+        out, residuals = egnn_forward_residuals(
+            pos, h0, temb, weights, egnn.normalization_constant, final_scaling, use_kernel
+        )
     value = out.reshape(B, n_nodes * dim)
 
     # Tangent seeds: the zero-CoM projection of each direction.
@@ -297,10 +303,11 @@ def egnn_value_and_trace(
         vec_t = (e - e_mean).expand(K, B, n_nodes, dim)
     h_t = torch.zeros((K, B, n_nodes, h0.shape[-1]), dtype=torch.float32, device=x.device)
 
-    for res, wt in zip(residuals, weights):
-        vec_t, h_t = _block_tangent(
-            vec_t, h_t, res, wt, cd, egnn.normalization_constant, use_kernel
-        )
+    with span("ecnf.field.tangent"):
+        for res, wt in zip(residuals, weights):
+            vec_t, h_t = _block_tangent(
+                vec_t, h_t, res, wt, cd, egnn.normalization_constant, use_kernel
+            )
 
     # Epilogue: J e = fs * (V'(Px) Pe - Pe - e_mean).
     out_t = (vec_t - (e - e_mean) - e_mean) * final_scaling

@@ -195,7 +195,7 @@ def _fake_weights(U, L):
     (2, 19, 256, 4, torch.float16, TypeError),
     (2, 19, 512, 4, torch.bfloat16, ValueError),  # wider than 256
     (2, 19, 256, 9, torch.bfloat16, ValueError),  # deeper than 8
-    (2, 33, 64, 2, torch.bfloat16, ValueError),  # more than 32 nodes
+    (2, 65, 64, 2, torch.bfloat16, ValueError),  # more than 64 nodes
     (2, 1, 64, 2, torch.bfloat16, ValueError),  # one node: no edges
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(B, N, U, L, dtype, error):
@@ -236,9 +236,12 @@ CUDA = torch.device("cuda")
     (CUDA, torch.bfloat16, 4, 128, 3, True),  # DW4
     (CUDA, torch.bfloat16, 5, 16, 2, True),  # zero-padded to 32
     (CUDA, torch.bfloat16, 2, 100, 1, True),  # zero-padded to 128
+    (CUDA, torch.bfloat16, 33, 64, 2, True),  # past the fused kernels' 32 nodes
+    (CUDA, torch.bfloat16, 55, 128, 3, True),  # LJ55
+    (CUDA, torch.bfloat16, 64, 256, 4, True),
     (torch.device("cpu"), torch.bfloat16, 19, 256, 4, False),
     (CUDA, torch.float32, 19, 256, 4, False),
-    (CUDA, torch.bfloat16, 33, 64, 2, False),
+    (CUDA, torch.bfloat16, 65, 64, 2, False),
     (CUDA, torch.bfloat16, 19, 257, 4, False),
     (CUDA, torch.bfloat16, 19, 256, 9, False),
     (CUDA, torch.bfloat16, 1, 64, 2, False),

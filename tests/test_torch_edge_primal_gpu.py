@@ -14,8 +14,9 @@ thread block with fewer receivers than the others (the kernel takes
 floor(128 / N) whole receivers a block), and widths the kernel takes
 zero-padded (U = 16, 100).  Through the whole field: the value and the
 Hutchinson trace with both kernels against the plain route at QM9 width,
-the value within 1e-3 and the trace within 3e-2 of their largest
-magnitude (the edge-tangent tests' bf16 bands).
+and the exact trace over LJ55's 162 zero-CoM columns at its widths, the
+value within 1e-3 and the trace within 3e-2 of their largest magnitude
+(the edge-tangent tests' bf16 bands).
 """
 import pytest
 import torch
@@ -78,9 +79,12 @@ def _check(out, ref, limit=LIMIT):
 
 # (B, N, U, L, hidden): QM9, LJ13, ALDP, DW4 (D=2 below), then the last
 # thread block short of receivers (QM9: 6 a block, 5 x 19 = 95 receivers;
-# LJ13: 9 a block, 104), and the widths taken zero-padded.
+# LJ13: 9 a block, 104), the widths taken zero-padded, and more than 32
+# nodes (3 receivers a block at N = 33, 2 at LJ55's N = 55 and at 64; 5 x 55
+# receivers leave a last block of 1).
 SHAPES = [(12, 19, 256, 4, 32), (8, 13, 128, 3, 64), (8, 22, 64, 2, 32), (16, 4, 128, 3, 64),
-          (5, 19, 256, 4, 32), (8, 13, 128, 1, 64), (4, 5, 16, 2, 16), (3, 7, 100, 2, 16)]
+          (5, 19, 256, 4, 32), (8, 13, 128, 1, 64), (4, 5, 16, 2, 16), (3, 7, 100, 2, 16),
+          (4, 33, 64, 2, 32), (5, 55, 128, 3, 64), (3, 64, 256, 4, 32)]
 
 
 @pytest.mark.gpu
@@ -133,5 +137,25 @@ def test_hutchinson_trace_through_both_kernels(cuda):
     v_p, d_p = cnf.tangent_value_and_div(x, t, f, probes, use_kernel=False)
     assert ep.edge_primal.launch_count == p0 + 5
     assert torch.isfinite(v_k).all() and torch.isfinite(d_k).all()
+    assert (v_k - v_p).abs().max() <= VALUE_BAND * v_p.abs().max()
+    assert (d_k - d_p).abs().max() <= TRACE_BAND * d_p.abs().max()
+
+
+@pytest.mark.gpu
+def test_lj55_exact_trace_through_both_kernels(cuda):
+    # LJ55 (N=55) at the LJ13 network's widths: both kernels past 32 nodes.
+    cnf = _cnf(55, 3, (128,) * 3, 64, cuda, seed=5)
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 165), generator=gen).to(cuda)
+    t = torch.tensor([0.3, 0.7], device=cuda)
+    f = torch.zeros((2, 55), dtype=torch.int64, device=cuda)
+    basis, offset = cnf.exact_trace_plan()
+    assert basis.shape == (162, 165)
+    p0, t0 = ep.edge_primal.launch_count, et.edge_tangent.launch_count
+    v_k, d_k = cnf.tangent_value_and_div(x, t, f, basis, trace_offset=offset)
+    assert ep.edge_primal.launch_count == p0 + 3 and et.edge_tangent.launch_count == t0 + 3
+    v_p, d_p = cnf.tangent_value_and_div(x, t, f, basis, trace_offset=offset, use_kernel=False)
+    d_k, d_p = d_k - offset, d_p - offset
+    assert torch.isfinite(v_k).all() and torch.isfinite(d_k).all() and d_p.abs().max() > 0.1
     assert (v_k - v_p).abs().max() <= VALUE_BAND * v_p.abs().max()
     assert (d_k - d_p).abs().max() <= TRACE_BAND * d_p.abs().max()

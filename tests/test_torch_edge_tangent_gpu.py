@@ -18,6 +18,9 @@ largest magnitude.  A thread block takes C tangent columns of one
 cases put ragged row counts (C * N % 16 != 0), a K that C does not divide,
 and C = 1, the default and the largest C that launches through it.  Widths
 the kernel does not take (U = 4, 16, 100) go through its zero-padding.
+Past 32 nodes (N = 33, 55, 64) the kernel is held to its plain version at
+the same limits, and the cost model's picks at the LJ13 and QM9 shapes are
+pinned.
 """
 import pytest
 import torch
@@ -117,6 +120,62 @@ def test_chunkings_agree(cuda, K, B, N, U, L, dtype, limit):
         out = et.edge_tangent(**args, columns_per_block=cols)
         _check(out, ref, limit)
         _check(out, base, limit)
+
+
+# Past the 32 nodes of the EGCL and fused-trace kernels (up to 64): a
+# column's N sender rows span three or four 16-row tiles.  LJ55's widths at
+# N = 55; a K that the default C does not divide.
+MANY_NODES = [(9, 2, 33, 64, 2), (13, 2, 55, 128, 3), (6, 2, 64, 128, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,limit", LIMITS)
+@pytest.mark.parametrize("K,B,N,U,L", MANY_NODES)
+def test_more_than_32_nodes_match_plain(cuda, K, B, N, U, L, dtype, limit):
+    # C = 1, the default and the largest C that launches.
+    args = torch_args(edge_inputs(K, B, N, U, L, seed=8), dtype, cuda)
+    ref = et.edge_tangent_reference(**args)
+    default = et.default_columns(0, dtype, K, B, N, U, L)
+    largest = _largest_columns(dtype, K, B, N, U, L)
+    assert 1 <= default <= largest
+    for cols in sorted({1, default, largest}):
+        before = et.edge_tangent.launch_count
+        out = et.edge_tangent(**args, columns_per_block=cols)
+        assert et.edge_tangent.launch_count == before + 1
+        _check(out, ref, limit)
+
+
+@pytest.mark.gpu
+def test_64_nodes_at_the_widest_units(cuda):
+    # bf16 takes U = 256 at N = 64; float32 does not (at 4 row tiles a
+    # column the 3xTF32 pass would need 4 row tiles a warp, past its 3).
+    K, B, N, U, L = 3, 2, 64, 256, 2
+    args = torch_args(edge_inputs(K, B, N, U, L, seed=9), torch.bfloat16, cuda)
+    _check(et.edge_tangent(**args), et.edge_tangent_reference(**args), 1e-2)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        et.default_columns(0, torch.float32, K, B, N, U, L)
+    with pytest.raises(ValueError, match="unsupported N"):
+        et.edge_tangent(**torch_args(edge_inputs(1, 1, 65, 32, 1, seed=9), torch.bfloat16, cuda))
+
+
+# The cost model's picks and plans at the LJ13 (K=36, B=48) and QM9 (K=54,
+# B=64) shapes of `chip_smoke.py`'s phase 3, as they were while the kernel
+# took at most 32 nodes: taking more left them as they are.
+PLANS = [
+    (torch.bfloat16, (36, 48, 13, 128, 3), 18, (211072, 1, 4, 0)),
+    (torch.float32, (36, 48, 13, 128, 3), 7, (99328, 2, 3, 0)),
+    (torch.bfloat16, (54, 64, 19, 256, 4), 5, (191104, 1, 3, 0)),
+    (torch.float32, (54, 64, 19, 256, 4), 2, (89856, 2, 3, 0)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,cols,plan", PLANS, ids=["lj13-bf16", "lj13-f32",
+                                                             "qm9-bf16", "qm9-f32"])
+def test_plans_up_to_32_nodes_are_pinned(cuda, dtype, shape, cols, plan):
+    assert et.default_columns(0, dtype, *shape) == cols
+    got = et.launch_plan(0, dtype, *shape, cols)
+    assert (got["smem_bytes"], got["blocks_per_sm"], got["row_tiles"], got["staged"]) == plan
 
 
 @pytest.mark.gpu

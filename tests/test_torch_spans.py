@@ -5,9 +5,11 @@ profiler range.  Under `torch.profiler.profile`, a solve is one
 ``ecnf.solve`` span holding one ``ecnf.field`` span per field evaluation
 (rk4 4 a step, fixed Dopri5 1 + 6 a step, adaptive Dopri5 2 + 6 an
 attempt) and one ``ecnf.ode.sync`` span per host read of the adaptive
-loop; a train step is one ``ecnf.train.step`` span holding each of its
-parts once.  `run_training` with ``profile_dir`` writes the step spans into
-its Chrome trace.
+loop; on the structured tangent each field span holds an
+``ecnf.field.primal`` span and then an ``ecnf.field.tangent`` span.  A
+train step is one ``ecnf.train.step`` span holding each of its parts once.
+`run_training` with ``profile_dir`` writes the step spans into its Chrome
+trace.
 """
 import json
 
@@ -143,6 +145,27 @@ def test_a_solve_is_one_span_holding_a_span_per_field_evaluation(name):
         assert len(fields) == 1 + 6 * n_steps and not syncs
     else:
         assert stats.num_syncs == stats.num_attempts + 2 and stats.num_attempts > 0
+
+
+@pytest.mark.parametrize("name", ["rk4_structured", "rk4_hutchinson", "rk4_fused", "rk4_jvp"])
+def test_the_structured_trace_splits_each_field_span_into_primal_and_tangent(name):
+    entry, settings, approx, _ = SOLVES[name]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _solve(entry, _cnf(), SolveConfig(**settings), approx)
+    found = _spans(prof)
+    fields = [s for s in found if s[0] == "ecnf.field"]
+    parts = [s for s in found if s[0] in ("ecnf.field.primal", "ecnf.field.tangent")]
+    # The torch.func route bypasses the structured tangent; the fused route's
+    # plain version (the CPU's) is the structured tangent in float32, where
+    # on a card its kernel records no part.
+    if name == "rk4_jvp":
+        assert not parts
+        return
+    assert len(parts) == 2 * len(fields) == 2 * 4 * round(1 / STEP)
+    for field in fields:
+        inside = [s for s in parts if _inside(s, field)]
+        assert [s[0] for s in inside] == ["ecnf.field.primal", "ecnf.field.tangent"]
+        assert inside[0][2] <= inside[1][1]
 
 
 @pytest.fixture

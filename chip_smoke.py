@@ -11,8 +11,9 @@ Phases, one or more lines each:
    kernel's dense passes run on the tensor cores (bf16, or f32 in 3xTF32);
 3. kernel vs plain: the edge-tangent kernel against
    `edge_tangent_reference` at the LJ13 and QM9 shapes, in float32 and
-   bfloat16, with times, the default columns per thread block and its
-   shared memory and blocks per SM; then the kernel at every column count
+   bfloat16 (LJ13 bf16 takes the resident design, phase 21), with times,
+   the default columns per thread block of the other design and its
+   shared memory and blocks per SM; then that design at every column count
    per thread block that launches, each checked against the plain version
    at the same limit and timed;
 4. serving: ``python -m ecnf_tpu_torch.sample``'s code path at the full
@@ -179,6 +180,15 @@ Phases, one or more lines each:
    and plan and the time at every column count that launches, and in f32
    at B=2; the primal kernel at B=16 on block 0's bf16 weights; each
    against its plain version (limits ``EDGE_LIMITS``) and its bound.
+21. the resident bf16 edge-tangent design (`edge_tangent_resident`; run
+   right after phase 20): at the LJ55 cell's launch and at LJ13 (K=36,
+   B=48) against the other design at its cost model's C and the plain
+   version, with its bound and share, two launches bit-equal; each design's
+   time at K = 6 .. 36 columns (B=48, N=13) and at the DW4 program's shape,
+   where `RESIDENT_MIN_COLUMNS` comes from; one bf16 rk4 exact solve at
+   the LJ55 cell's shape, all 240 of whose edge launches must be resident
+   (phase 19's QM9 Hutchinson solve must have none); and phase 18's (a)
+   FLOP count through each design and the plain route, which must agree.
 
 Bounds: the larger of the bytes a kernel must move (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
@@ -553,7 +563,9 @@ def phase_kernel_vs_plain(et) -> dict:
                       *((BF16_FLOPS, 1) if dtype == torch.bfloat16 else (TF32_FLOPS, 3)))
             cols = et.default_columns(0, dtype, K, B, N, U, L)
             plan = et.launch_plan(0, dtype, K, B, N, U, L, cols)
-            if dtype == torch.bfloat16:
+            if et.resident_route(dtype, K, B, N, U, L):
+                residuals = "the default route is the resident design (phase 21); this plan is the other's"
+            elif dtype == torch.bfloat16:
                 residuals = "silu' rows streamed into shared memory with the weights"
             elif plan["staged"]:
                 residuals = "residuals staged in shared memory"
@@ -663,17 +675,20 @@ def phase_edge_primal(ep, et, sampling, card: str) -> dict:
                                hutchinson_probes=1)
     x0 = cnf.sample_base((256,), generator=torch.Generator().manual_seed(13))
     zero_counts()
+    resident = et.edge_tangent_resident.launch_count
     t0 = time.perf_counter()
     x1, lq = sampling.sample_and_log_prob_cnf(cnf, 256, feats, approx=True, cfg=cfg, x0=x0)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launched = counts()
+    resident = et.edge_tangent_resident.launch_count - resident
     print(f"[primal] bf16 rk4 Hutchinson solve, QM9 width, B=256: {launched['edge_primal']} "
           f"edge_primal and {launched['edge_tangent']} edge_tangent launches (expected "
-          f"{20 * 4 * 5} each), {seconds:.3f} s with its first call; on {card}", flush=True)
+          f"{20 * 4 * 5} each), {resident} of them resident (K=1: expected 0), {seconds:.3f} s "
+          f"with its first call; on {card}", flush=True)
     check(bool(torch.isfinite(x1).all() and torch.isfinite(lq).all()), "non-finite bf16 solve")
-    check(launched["edge_primal"] == launched["edge_tangent"] == 20 * 4 * 5,
-          f"bf16 solve launches {launched}")
+    check(launched["edge_primal"] == launched["edge_tangent"] == 20 * 4 * 5 and resident == 0,
+          f"bf16 solve launches {launched}, {resident} resident")
     results["solve_launches"] = launched["edge_primal"]
     return results
 
@@ -712,7 +727,8 @@ def phase_lj55(ep, et, card: str) -> None:
         print(
             f"[lj55] edge_tangent {shape} {name}: max_abs_err={abs_err:.3e} rel={rel:.3e} "
             f"(limit {EDGE_LIMITS[dtype]:.0e}) kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us "
-            f"{rate_line(b, ms)}; {cols} columns per thread block: {plan['smem_bytes']} B of "
+            f"{rate_line(b, ms)} (resident design: {et.resident_route(dtype, K, B, N, U, L)}); "
+            f"the other design's {cols} columns per thread block: {plan['smem_bytes']} B of "
             f"shared memory, {plan['blocks_per_sm']} blocks per SM, {plan['row_tiles']} row tiles "
             f"per warp, staged={plan['staged']}; ms by columns per block: {' '.join(sweep)}; "
             f"on {card}",
@@ -740,6 +756,118 @@ def phase_lj55(ep, et, card: str) -> None:
           f"(limit {EDGE_LIMITS[torch.bfloat16]:.0e}); on {card}", flush=True)
     check(math.isfinite(rel) and rel <= EDGE_LIMITS[torch.bfloat16],
           f"edge_primal lj55: rel error {rel:.3e}")
+
+
+def phase_resident(et, sampling, card: str) -> dict:
+    """Phase 21: the resident bf16 edge-tangent kernel (`edge_tangent_resident`)
+    against the other design at its cost model's C and the plain version,
+    at the LJ55 and LJ13 (B=48) shapes, timed against its bound; its
+    launches in one LJ55 rk4 exact solve (every edge launch) and the FLOP
+    count of phase 18's bf16 LJ13 solve through each design and the plain
+    route."""
+    from ecnf_tpu_torch.cnf.build import build_cnf
+
+    bf16 = torch.bfloat16
+    results = {}
+    for name, shape in (("lj55", LJ55_EDGE), ("lj13", LJ13_EDGE)):
+        K, B, N, U, L = (shape[k] for k in ("K", "B", "N", "U", "L"))
+        args = edge_inputs(**shape, dtype=bf16, seed=23)
+        resident = et.edge_tangent_resident(**args)
+        again = et.edge_tangent_resident(**args)
+        plain = et.edge_tangent_reference(**args)
+        cols = et.default_columns(0, bf16, K, B, N, U, L)
+        blocks = et.edge_tangent(**args, columns_per_block=cols)
+        torch.cuda.synchronize()
+        abs_err, rel = edge_errors(resident, plain)
+        _, rel_blocks = edge_errors(blocks, plain)
+        same = all(torch.equal(x, y) for x, y in zip(resident, again))
+        reps = 10 if name == "lj55" else 50
+        ms = cuda_ms(lambda: et.edge_tangent_resident(**args), reps)
+        blocks_ms = cuda_ms(lambda: et.edge_tangent(**args, columns_per_block=cols), reps)
+        plain_ms = cuda_ms(lambda: et.edge_tangent_reference(**args), 2)
+        b = bound(edge_flop(B * N * N, K, L, U), nbytes(args, resident), BF16_FLOPS)
+        route = et.resident_route(bf16, K, B, N, U, L)
+        print(
+            f"[resident] {name} {shape} bf16: resident {ms * 1e3:.1f} us ({rate_line(b, ms)}), "
+            f"blocks of C={cols} {blocks_ms * 1e3:.1f} us (share {b['bound_ms'] / blocks_ms:.3f}), "
+            f"plain {plain_ms * 1e3:.1f} us; max err / max |plain| {rel:.3e} (blocks "
+            f"{rel_blocks:.3e}, limit {EDGE_LIMITS[bf16]:.0e}), two launches bit-equal: {same}; "
+            f"{et.resident_smem_bytes(U, L)} B of shared memory; `resident_route`: {route}; "
+            f"on {card}",
+            flush=True,
+        )
+        check(math.isfinite(rel) and rel <= EDGE_LIMITS[bf16], f"resident {name}: rel error {rel:.3e}")
+        check(same, f"resident {name}: two launches differ")
+        results[name] = dict(abs_err=abs_err, ms=ms, blocks_ms=blocks_ms, plain_ms=plain_ms, **b)
+        del args, resident, again, plain, blocks
+        torch.cuda.empty_cache()
+
+    # Where the resident design starts to pay (`RESIDENT_MIN_COLUMNS`): K
+    # columns at LJ13's B=48, the DW4 training program's shape and ALDP's
+    # Hutchinson shape (K=1).
+    sweep = []
+    shapes = [(K, 48, 13, 128, 3) for K in (6, 12, 18, 24, 30, 32, 36)]
+    for K, B, N, U, L in shapes + [(6, 64, 4, 128, 3), tuple(ALDP_HUTCH_EDGE.values())]:
+        args = edge_inputs(K, B, N, U, L, dtype=bf16, seed=26)
+        cols = et.default_columns(0, bf16, K, B, N, U, L)
+        ms = cuda_ms(lambda: et.edge_tangent_resident(**args), 20)
+        blocks_ms = cuda_ms(lambda: et.edge_tangent(**args, columns_per_block=cols), 20)
+        sweep.append(f"K={K} B={B} N={N} U={U} L={L}: {ms * 1e3:.1f} / {blocks_ms * 1e3:.1f}")
+    print(f"[resident] us a launch, resident / blocks: {'; '.join(sweep)}; threshold "
+          f"{et.RESIDENT_MIN_COLUMNS} columns; on {card}", flush=True)
+
+    # One bf16 rk4 exact solve at the LJ55 cell's shape: every edge launch
+    # takes the resident kernel.
+    cnf = build_cnf(n_frames=55, dim=3, sigma_min=0.01, base_scale=1.0, n_blocks_egnn=3,
+                    mlp_units=(128,) * 3, n_invariant_feat_hidden=64, time_embedding_dim=8,
+                    n_features=1, compute_dtype="bfloat16", device="cuda",
+                    generator=torch.Generator().manual_seed(24))
+    feats = torch.zeros((16, 55), dtype=torch.int64, device="cuda")
+    cfg = sampling.SolveConfig(use_fixed_step_size=True, step_size=0.05, method="rk4")
+    x0 = cnf.sample_base((16,), generator=torch.Generator().manual_seed(25))
+    zero_counts()
+    before = et.edge_tangent_resident.launch_count
+    t0 = time.perf_counter()
+    x1, lq = sampling.sample_and_log_prob_cnf(cnf, 16, feats, cfg=cfg, x0=x0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    resident = et.edge_tangent_resident.launch_count - before
+    edge = counts()["edge_tangent"]
+    print(f"[resident] bf16 rk4 exact solve, LJ55, B=16: {resident} of {edge} edge launches "
+          f"resident (expected {RK4_LAUNCHES} of {RK4_LAUNCHES}), {seconds:.3f} s with its first "
+          f"call; on {card}", flush=True)
+    check(bool(torch.isfinite(x1).all() and torch.isfinite(lq).all()), "non-finite LJ55 solve")
+    check(resident == edge == RK4_LAUNCHES, f"LJ55 solve: {resident} resident of {edge}")
+    results["lj55_solve_launches"] = resident
+    del cnf, x1, lq
+    torch.cuda.empty_cache()
+
+    # Phase 18's (a) count through each design (the cost model's C forces
+    # the other one) and through the plain route.
+    from ecnf_tpu_torch import sample
+
+    args = sample.build_parser().parse_args(LJ13_ARGS)
+    cnf = sample.build_from_args(args, torch.device("cuda"))
+    feats = torch.zeros((48, 13), dtype=torch.int64, device="cuda")
+    x0 = cnf.sample_base((48,), generator=torch.Generator().manual_seed(4))
+    cfg = sampling.SolveConfig(use_fixed_step_size=True, step_size=0.05, method="rk4")
+    resident_before = et.edge_tangent_resident.launch_count
+    kernel, launched = _counted_solve(sampling, cnf, 48, feats, cfg, x0)
+    resident = et.edge_tangent_resident.launch_count - resident_before
+    threshold = et.RESIDENT_MIN_COLUMNS
+    et.RESIDENT_MIN_COLUMNS = LJ13_EDGE["K"] + 1  # the other design
+    try:
+        blocks, _ = _counted_solve(sampling, cnf, 48, feats, cfg, x0)
+    finally:
+        et.RESIDENT_MIN_COLUMNS = threshold
+    plain, _ = _counted_solve(
+        sampling, cnf, 48, feats, dataclasses.replace(cfg, structured_tangent_kernel=False), x0)
+    print(f"[resident] phase 18 (a) count, lj13 rk4 B=48 bf16: {_flop_line(kernel)} with "
+          f"{resident} of {launched['edge_tangent']} launches resident; blocks "
+          f"{_flop_line(blocks)}; plain {_flop_line(plain)}; equal: "
+          f"{kernel == blocks == plain}; on {card}", flush=True)
+    check(kernel == blocks == plain, f"counts differ: {kernel} / {blocks} / {plain}")
+    return results
 
 
 def redraw_dense_(field, seed: int) -> None:
@@ -2913,6 +3041,7 @@ def main() -> None:
     edge = phase_kernel_vs_plain(et)
     primal = phase_edge_primal(ep, et, sampling, card)
     phase_lj55(ep, et, card)
+    phase_resident(et, sampling, card)
     launches, f32 = phase_serving(sample, sampling)
     egcl_results = phase_egcl(egcl, ode)
     fused = phase_fused_kernel(fused_trace)

@@ -188,16 +188,6 @@ __device__ __forceinline__ void activate(bf162 z, bf162& act, bf162& dsilu) {
   dsilu = __hmul2_rn(s, __hadd2_rn(one, __hmul2_rn(z, __hadd2_rn(one, __hneg2(s)))));
 }
 
-// A shared-memory matrix descriptor of wgmma without swizzle: the start
-// address and the byte offsets between core matrices along K (lbo) and
-// along M or N (sbo), each in 16-byte units.
-__device__ __forceinline__ unsigned long long smem_desc(const void* p, unsigned lbo, unsigned sbo) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  return static_cast<unsigned long long>((addr >> 4) & 0x3FFF) |
-         (static_cast<unsigned long long>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<unsigned long long>((sbo >> 4) & 0x3FFF) << 32);
-}
-
 // d += a b over a 64 x NW x 16 step of a warpgroup: A K-major, B N-major
 // (read transposed), f32 accumulators in the m16n8 fragment order per warp
 // of 16 rows: d[4 j + 2 h + c] is row 16 warp + lane / 4 + 8 h, column
@@ -281,10 +271,6 @@ __device__ __forceinline__ void load_chunk(const Args& a, bf16* ring, int ch, in
     }
   }
   cp_async_commit();
-}
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // 16 bytes of a tile row (8 contiguous units from `u`) of `src` to the

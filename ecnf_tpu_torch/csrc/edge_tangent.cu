@@ -24,6 +24,13 @@
 // [K, B, N, N, U] intermediates never leave the chip.  They do not: each
 // lives in shared memory and registers for one thread block's pass.
 //
+// Two designs.  bf16 with many tangent columns at U <= 128, where the
+// chain's weights fit in shared memory, runs the persistent wgmma kernel
+// `edge_tangent_bf16_kernel_resident` (its own section below; the route is
+// `ops/edge_tangent.py: resident_route`).  Everything else, f32, few
+// columns (K=1 Hutchinson probes, bound by bytes) and U = 256, runs the
+// design described here.
+//
 // Design: every [rows, U] @ [U, U] product runs on the tensor cores, and
 // the work around the products is kept per element as small as it can be,
 // since at these widths (a row's product is 8 or 16 mma steps deep) that
@@ -537,6 +544,403 @@ __global__ void __launch_bounds__(kThreadsF32, 2)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 with resident weights (`edge_tangent_bf16_kernel_resident`)
+// ---------------------------------------------------------------------------
+//
+// The second bf16 design, for many tangent columns at U <= 128: the same
+// contract and rounding points as `edge_tangent_bf16_kernel`, laid out the
+// other way round.  A 64-row tile holds up to 64 tangent columns c of one
+// edge (b, i, j), so the silu' factor rows d[p][b, i, j, :], m[b, i, j, :],
+// g and gd are one broadcast vector (or scalar) per tile.
+//
+// - Persistent grid: one block of two warpgroups per SM.  The block loads
+//   all 2L - 1 [U, U] weights once, as N-major core matrices that wgmma
+//   reads straight from shared memory (LJ55: 5 x 32 KB, where the other
+//   design streams them through a ring in every one of its 47,520 blocks).
+// - Work items (b, i, group of <= 64 columns), the groups of one (b, i)
+//   side by side, are dealt out statically to the warpgroups of the grid.
+//   A warpgroup walks its item's senders j = 0 .. N - 1 and sums mi_t in
+//   f32 registers in sender order, as the other design does: no atomics,
+//   and two runs agree bit for bit.  b_t[c, b, i, :] stays in registers
+//   across the walk.
+// - The chain stays in registers: every layer is a wgmma m64nUk16 with A
+//   from registers; the epilogue bf16(d * bf16(acc)) turns the f32
+//   accumulators straight into the next layer's A fragments (the m64 f32
+//   accumulator and the bf16 A fragment share one lane layout), so a layer
+//   costs no shared-memory round trip and no block barrier.  The first
+//   layer is built in the same layout from ldmatrix fragments of the a_t
+//   rows.  The gate's and phi_x's Dense(1) columns are row dots on the
+//   fragments, reduced over the four lanes that share a row.
+// - Each warpgroup copies its next (item, j)'s a_t rows [64, U], its
+//   2L + 1 broadcast vectors and its 64 l2_t values with cp.async while it
+//   works on this one; the a_t tile is single-buffered (it is read only by
+//   the first layer), the small rest double-buffered.  The two warpgroups
+//   share nothing after the weights are in, so one's epilogues and row
+//   dots run under the other's products; the mi_t update runs under the
+//   first phi_x product, which reads the same fragments.
+// - Rows past the item's last column compute a copy of its last column
+//   and are not stored.
+//
+// Registers a thread at U = 128: 64 accumulators, 32 A fragment words, 64
+// mi_t sums and 32 b_t words (255 registers; ptxas spills 12 bytes).
+// Shared memory at U = 128, L = 3: 163,840 B of weights, 1,280 B of vectors
+// and 2 x 21,504 B of warpgroup stages, 208,128 B (`resident_plan`); at
+// L = 4 the 7 weights are past the card's 227 KB.
+//
+// On an H100 SXM (700 W) at the LJ55 cell's launch (K=162, B=16, N=55,
+// U=128, L=3; 1.287 TFLOP, 1.30 ms at the bf16 peak): 2.82 ms, 46% of the
+// bound, against 11.56 ms for the other design at its best C; at LJ13
+// (K=36, B=48) 229 us against 409 us.
+
+constexpr int kResThreads = 256;  // two warpgroups
+constexpr int kResRows = 64;      // tangent columns a tile
+constexpr int kResVectors = 2 * kMaxLayers + 1;
+
+struct ResArgs {
+  int K, B, N, L, G;  // G = ceil(K / 64) column groups
+  const bf16* a_t;    // [K, B, N, U]
+  const bf16* b_t;    // [K, B, N, U]
+  const float* l2_t;  // [K, B, N, N]
+  const bf16* w[kMaxPasses];   // e_tail..., x_tail...
+  const bf16* v[kResVectors];  // d_e[0..L-1], d_x[0..L-1], m; [B, N, N, U] each
+  const bf16* g;      // [B, N, N]
+  const bf16* gd;     // [B, N, N]
+  const bf16* e_l;    // [U]
+  const bf16* x_out;  // [U]
+  const bf16* g_out;  // [U]
+  float* phi_t;       // [K, B, N, N]
+  float* mi_t;        // [K, B, N, U]
+};
+
+// Byte offsets into the block's dynamic shared memory: the weights, the
+// block's vectors (g_out, x_out in f32, e_l in bf16), then one stage per
+// warpgroup: the a_t tile [64][U + 8], two buffers of the 2L + 1 vectors
+// [U] and two of the 64 l2_t values.
+struct ResPlan {
+  int w, vec, stage, stage_bytes, at_bytes, v_bytes, total;
+};
+
+__host__ __device__ inline ResPlan resident_plan(int U, int L) {
+  ResPlan p{};
+  const int V = 2 * L + 1;
+  p.w = 0;
+  p.vec = align128(static_cast<size_t>(2 * L - 1) * U * U * sizeof(bf16));
+  p.stage = p.vec + align128(static_cast<size_t>(U) * (2 * sizeof(float) + sizeof(bf16)));
+  p.at_bytes = align128(static_cast<size_t>(kResRows) * (U + 8) * sizeof(bf16));
+  p.v_bytes = align128(static_cast<size_t>(2) * V * U * sizeof(bf16));
+  p.stage_bytes = p.at_bytes + p.v_bytes + align128(2 * kResRows * sizeof(float));
+  p.total = p.stage + 2 * p.stage_bytes;
+  return p;
+}
+
+// d (+)= a b over a 64 x NW x 16 step of a warpgroup: A from registers (the
+// m16n8k16 A fragment of the warp's 16 rows), B N-major in shared memory
+// (read transposed), f32 accumulators; scale_d = 0 overwrites d.
+template <int NW>
+__device__ __forceinline__ void wgmma_ra(float (&d)[NW / 2], const unsigned* a,
+                                         unsigned long long db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ra<128>(float (&d)[64], const unsigned* a,
+                                              unsigned long long db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ra<64>(float (&d)[32], const unsigned* a,
+                                              unsigned long long db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ra<32>(float (&d)[16], const unsigned* a,
+                                              unsigned long long db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous products.
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int e = 0; e < R; ++e) asm volatile("" : "+f"(d[e])::"memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// A work item: sample b, receiver i, columns [c0, c0 + nc).
+struct Item {
+  int b, i, c0, nc;
+};
+
+__device__ __forceinline__ Item item_of(const ResArgs& a, int q) {
+  const int grp = q % a.G, bi = q / a.G;
+  Item it;
+  it.b = bi / a.N;
+  it.i = bi - it.b * a.N;
+  it.c0 = grp * kResRows;
+  it.nc = min(kResRows, a.K - it.c0);
+  return it;
+}
+
+// Tangent column of tile row r (rows past the item's columns repeat its last).
+__device__ __forceinline__ size_t column_row(const ResArgs& a, const Item& it, int r) {
+  return static_cast<size_t>(it.c0 + min(r, it.nc - 1)) * a.B + it.b;  // c B + b
+}
+
+// One cp.async group: (item, j)'s a_t rows, vectors and l2_t values, by
+// the 128 threads t of a warpgroup.
+template <int U>
+__device__ __forceinline__ void issue_stage(const ResArgs& a, const Item& it, int j, bf16* at,
+                                            bf16* vec, float* l2, int t) {
+  constexpr int C8 = U / 8;
+  const int N = a.N, V = 2 * a.L + 1;
+  for (int idx = t; idx < kResRows * C8; idx += 128) {
+    const int r = idx / C8, u = (idx % C8) * 8;
+    cp_async16(at + r * (U + 8) + u, a.a_t + (column_row(a, it, r) * N + j) * U + u);
+  }
+  const size_t e0 = ((static_cast<size_t>(it.b) * N + it.i) * N + j) * U;
+  for (int idx = t; idx < V * C8; idx += 128) {
+    const int v = idx / C8, u = (idx % C8) * 8;
+    cp_async16(vec + v * U + u, a.v[v] + e0 + u);
+  }
+  if (t < kResRows) cp_async4(l2 + t, a.l2_t + (column_row(a, it, t) * N + it.i) * N + j);
+  cp_async_commit();
+}
+
+__device__ __forceinline__ bf162 ld_bf162(const bf16* p) { return *reinterpret_cast<const bf162*>(p); }
+
+// U: the width, 32, 64 or 128 (the wgmma's N).  A thread's fragment word
+// e (and accumulator pair 2e, 2e + 1) is row 16 warp + lane / 4 + 8 (e & 1)
+// of the tile, units 8 (e >> 1) + 2 (lane % 4) + {0, 1}.
+template <int U>
+__global__ void __launch_bounds__(kResThreads, 1)
+    edge_tangent_bf16_kernel_resident(const __grid_constant__ ResArgs a, const ResPlan pl) {
+  constexpr int KS = U / 16;  // k-steps of a layer
+  constexpr int NA = U / 4;   // A fragment words
+  constexpr int ld = U + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = a.N, L = a.L, P = 2 * a.L - 1, V = 2 * a.L + 1;
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  const int warp = t / 32, lane = tid % 32, quad = lane % 4;
+  const int row0 = 16 * warp + lane / 4;  // the thread's rows: row0, row0 + 8
+
+  const bf16* W = reinterpret_cast<const bf16*>(smem + pl.w);
+  float* gout_s = reinterpret_cast<float*>(smem + pl.vec);
+  float* xout_s = gout_s + U;
+  bf16* el_s = reinterpret_cast<bf16*>(xout_s + U);
+  unsigned char* st = smem + pl.stage + wg * pl.stage_bytes;
+  bf16* at_s = reinterpret_cast<bf16*>(st);
+  bf16* vec_s = reinterpret_cast<bf16*>(st + pl.at_bytes);                 // [2][V][U]
+  float* l2_s = reinterpret_cast<float*>(st + pl.at_bytes + pl.v_bytes);  // [2][64]
+
+  // The weights, once: core (k / 8, n / 8) of layer p at p U^2 + (k / 8) 8U
+  // + (n / 8) 64, 8 contiguous n of one k a 16-byte row of the core.
+  {
+    constexpr int C8 = U / 8;
+    for (int idx = tid; idx < P * U * C8; idx += kResThreads) {
+      const int p = idx / (U * C8), k = (idx / C8) % U, n8 = idx % C8;
+      cp_async16(const_cast<bf16*>(W) + p * U * U + (k / 8) * 8 * U + n8 * 64 + (k % 8) * 8,
+                 a.w[p] + k * U + 8 * n8);
+    }
+    cp_async_commit();
+    for (int u = tid; u < U; u += kResThreads) {
+      gout_s[u] = __bfloat162float(a.g_out[u]);
+      xout_s[u] = __bfloat162float(a.x_out[u]);
+      el_s[u] = a.e_l[u];
+    }
+  }
+  const int items = a.B * N * a.G;
+  const int stride = 2 * gridDim.x;
+  int q = 2 * blockIdx.x + wg;
+  if (q < items) issue_stage<U>(a, item_of(a, q), 0, at_s, vec_s, l2_s, t);
+  cp_async_wait<0>();
+  fence_async_smem();  // the weights, to wgmma's view
+  __syncthreads();
+
+  const float sqrt_deg = sqrtf(static_cast<float>(N - 1));
+  const unsigned lbo = 16 * U, sbo = 128;  // bytes between cores along K and along N
+  float acc[U / 2];
+#pragma unroll
+  for (int e = 0; e < U / 2; ++e) acc[e] = 0.f;
+  unsigned A[NA];
+  int buf = 0;
+  for (; q < items; q += stride) {
+    const Item it = item_of(a, q);
+    unsigned bt[NA];
+    float mi[U / 2];
+#pragma unroll
+    for (int e = 0; e < NA; ++e) {
+      const int r = row0 + 8 * (e & 1), u = 8 * (e >> 1) + 2 * quad;
+      bt[e] = __ldg(reinterpret_cast<const unsigned*>(a.b_t + (column_row(a, it, r) * N + it.i) * U + u));
+      mi[2 * e] = 0.f;
+      mi[2 * e + 1] = 0.f;
+    }
+    const size_t edge0 = (static_cast<size_t>(it.b) * N + it.i) * N;
+    for (int j = 0; j < N; ++j) {
+      cp_async_wait<0>();
+      warpgroup_sync(wg);  // (q, j)'s stage has landed
+      const bf16* vc = vec_s + buf * V * U;
+      const float* l2c = l2_s + buf * kResRows;
+      const bf16 g1 = a.g[edge0 + j], gd1 = a.gd[edge0 + j];
+
+      // First layer: t = d_e[0] * (a_t[j] + b_t[i] + bf16(l2_t) * e_l).
+      {
+        const bf162 l2h[2] = {__float2bfloat162_rn(l2c[row0]), __float2bfloat162_rn(l2c[row0 + 8])};
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          unsigned f[4];
+          ldmatrix_x4(f, at_s + (16 * warp + (lane & 15)) * ld + 16 * kk + 8 * (lane >> 4));
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int e = 4 * kk + h, u = 8 * (e >> 1) + 2 * quad;
+            const bf162 z = __hadd2_rn(__hadd2_rn(as_bf162(f[h]), as_bf162(bt[e])),
+                                       __hmul2_rn(l2h[e & 1], ld_bf162(el_s + u)));
+            A[e] = as_u32(__hmul2_rn(ld_bf162(vc + u), z));
+          }
+        }
+      }
+      warpgroup_sync(wg);  // every read of the a_t tile is done
+      {
+        const bool last = j + 1 == N;
+        const int qn = last ? q + stride : q;
+        if (qn < items)
+          issue_stage<U>(a, last ? item_of(a, qn) : it, last ? 0 : j + 1, at_s,
+                         vec_s + (buf ^ 1) * V * U, l2_s + (buf ^ 1) * kResRows, t);
+      }
+
+      // Pass p: A = bf16(d[p + 1] * bf16(A @ W_p)), A's old words read by
+      // the asynchronous products, its new ones written after their wait.
+      for (int p = 0; p < P; ++p) {
+        const bf16* Wp = W + p * U * U;
+        auto issue = [&]() {
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            wgmma_ra<U>(acc, A + 4 * kk, smem_desc(Wp + 2 * kk * 8 * U, lbo, sbo), kk);
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        };
+        if (p == L - 1) {
+          // A holds m_t.  Gate tangent g_t = gd * bf16(m_t . g_out) per row.
+          float s[2] = {0.f, 0.f};
+#pragma unroll
+          for (int e = 0; e < NA; ++e) {
+            const int u = 8 * (e >> 1) + 2 * quad;
+            const float2 x = __bfloat1622float2(as_bf162(A[e]));
+            const float2 y = *reinterpret_cast<const float2*>(gout_s + u);
+            s[e & 1] = fmaf(x.y, y.y, fmaf(x.x, y.x, s[e & 1]));
+          }
+          bf162 gt[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+            s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+            gt[h] = __bfloat162bfloat162(__hmul_rn(gd1, __float2bfloat16(s[h])));
+          }
+          issue();
+          // mi_t[c, i, :] += f32(m_t * g + m * g_t) for j != i, under the
+          // first phi_x product.
+          if (j != it.i) {
+            const bf162 g2 = __bfloat162bfloat162(g1);
+            const bf16* mv = vc + 2 * L * U;
+#pragma unroll
+            for (int e = 0; e < NA; ++e) {
+              const int u = 8 * (e >> 1) + 2 * quad;
+              const bf162 term = __hadd2_rn(__hmul2_rn(as_bf162(A[e]), g2),
+                                            __hmul2_rn(ld_bf162(mv + u), gt[e & 1]));
+              const float2 f = __bfloat1622float2(term);
+              mi[2 * e] += f.x;
+              mi[2 * e + 1] += f.y;
+            }
+          }
+        } else {
+          issue();
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_operands(acc);
+        const bf16* d = vc + (p + 1) * U;
+#pragma unroll
+        for (int e = 0; e < NA; ++e) {
+          const int u = 8 * (e >> 1) + 2 * quad;
+          A[e] = as_u32(__hmul2_rn(ld_bf162(d + u), __floats2bfloat162_rn(acc[2 * e], acc[2 * e + 1])));
+        }
+      }
+
+      // phi_t[c, i, j] = p . x_out, left in f32.
+      {
+        float s[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < NA; ++e) {
+          const int u = 8 * (e >> 1) + 2 * quad;
+          const float2 x = __bfloat1622float2(as_bf162(A[e]));
+          const float2 y = *reinterpret_cast<const float2*>(xout_s + u);
+          s[e & 1] = fmaf(x.y, y.y, fmaf(x.x, y.x, s[e & 1]));
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+          s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+          const int r = row0 + 8 * h;
+          if (quad == 0 && r < it.nc)
+            a.phi_t[(column_row(a, it, r) * N + it.i) * N + j] = s[h];
+        }
+      }
+      buf ^= 1;
+    }
+#pragma unroll
+    for (int e = 0; e < NA; ++e) {
+      const int r = row0 + 8 * (e & 1), u = 8 * (e >> 1) + 2 * quad;
+      if (r < it.nc)
+        *reinterpret_cast<float2*>(a.mi_t + (column_row(a, it, r) * N + it.i) * U + u) =
+            make_float2(mi[2 * e] / sqrt_deg, mi[2 * e + 1] / sqrt_deg);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -700,6 +1104,21 @@ int run(int K, int B, int N, int U, int L, int C, const void* a_t, const void* b
                                            static_cast<size_t>(cfg.plan.total), stream));
 }
 
+const void* resident_kernel(int U) {
+  switch (U) {
+    case 32: return reinterpret_cast<const void*>(edge_tangent_bf16_kernel_resident<32>);
+    case 64: return reinterpret_cast<const void*>(edge_tangent_bf16_kernel_resident<64>);
+    case 128: return reinterpret_cast<const void*>(edge_tangent_bf16_kernel_resident<128>);
+  }
+  return nullptr;
+}
+
+bool resident_supported(int K, int B, int N, int U, int L) {
+  return K >= 1 && B >= 1 && N >= 2 && N <= kMaxEdgeNodes && L >= 1 && L <= kMaxLayers &&
+         resident_kernel(U) != nullptr &&
+         static_cast<long long>(B) * N * ((K + kResRows - 1) / kResRows) < (1LL << 31);
+}
+
 }  // namespace
 
 // Columns per thread block that the cost model picks for these shapes on
@@ -754,4 +1173,68 @@ extern "C" int ecnf_edge_tangent(int dtype, int K, int B, int N, int U, int L, i
     return run<bf16>(K, B, N, U, L, C, a_t, b_t, l2_t, d_e, d_x, m, g, gd, e_l,
                      e_tail, x_tail, x_out, g_out, phi_t, mi_t, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of the resident bf16 kernel at width U and L
+// layers a chain (weights, vectors and the two warpgroups' stages), in
+// bytes; 0 for a U or L it does not take.  Whether it launches is the
+// card's limit: `ecnf_edge_tangent_resident` returns
+// cudaErrorInvalidConfiguration where it is past it.
+extern "C" int ecnf_edge_tangent_resident_smem(int U, int L) {
+  if (resident_kernel(U) == nullptr || L < 1 || L > kMaxLayers) return 0;
+  return resident_plan(U, L).total;
+}
+
+// The resident bf16 kernel (`edge_tangent_bf16_kernel_resident`): the
+// arguments of `ecnf_edge_tangent` in bf16, with no columns per block; U
+// in {32, 64, 128}.  One block of two warpgroups per SM, at most one per
+// two work items.  Returns a cudaError_t (0 on success);
+// cudaErrorInvalidValue for shapes it does not take,
+// cudaErrorInvalidConfiguration where its shared memory is past the card's.
+extern "C" int ecnf_edge_tangent_resident(int K, int B, int N, int U, int L, const void* a_t,
+                                          const void* b_t, const float* l2_t,
+                                          const void* const* d_e, const void* const* d_x,
+                                          const void* m, const void* g, const void* gd,
+                                          const void* e_l, const void* const* e_tail,
+                                          const void* const* x_tail, const void* x_out,
+                                          const void* g_out, float* phi_t, float* mi_t,
+                                          void* stream) {
+  if (!resident_supported(K, B, N, U, L)) return static_cast<int>(cudaErrorInvalidValue);
+  const ResPlan plan = resident_plan(U, L);
+  const void* fn = resident_kernel(U);
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (occupancy(fn, kResThreads, plan.total) == 0)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  ResArgs a{};
+  a.K = K;
+  a.B = B;
+  a.N = N;
+  a.L = L;
+  a.G = (K + kResRows - 1) / kResRows;
+  a.a_t = static_cast<const bf16*>(a_t);
+  a.b_t = static_cast<const bf16*>(b_t);
+  a.l2_t = l2_t;
+  for (int l = 1; l < L; ++l) a.w[l - 1] = static_cast<const bf16*>(e_tail[l - 1]);
+  for (int l = 0; l < L; ++l) {
+    a.w[L - 1 + l] = static_cast<const bf16*>(x_tail[l]);
+    a.v[l] = static_cast<const bf16*>(d_e[l]);
+    a.v[L + l] = static_cast<const bf16*>(d_x[l]);
+  }
+  a.v[2 * L] = static_cast<const bf16*>(m);
+  a.g = static_cast<const bf16*>(g);
+  a.gd = static_cast<const bf16*>(gd);
+  a.e_l = static_cast<const bf16*>(e_l);
+  a.x_out = static_cast<const bf16*>(x_out);
+  a.g_out = static_cast<const bf16*>(g_out);
+  a.phi_t = phi_t;
+  a.mi_t = mi_t;
+  const long long items = static_cast<long long>(B) * N * a.G;
+  const int blocks = static_cast<int>(items < 2LL * sms ? (items + 1) / 2 : sms);
+  void* params[] = {&a, const_cast<ResPlan*>(&plan)};
+  return static_cast<int>(cudaLaunchKernel(fn, dim3(blocks), dim3(kResThreads), params,
+                                           static_cast<size_t>(plan.total),
+                                           static_cast<cudaStream_t>(stream)));
 }

@@ -297,6 +297,22 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
+// A shared-memory matrix descriptor of wgmma without swizzle: the start
+// address and the byte offsets between core matrices along K (lbo) and
+// along M or N (sbo), each in 16-byte units.
+__device__ __forceinline__ unsigned long long smem_desc(const void* p, unsigned lbo, unsigned sbo) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  return static_cast<unsigned long long>((addr >> 4) & 0x3FFF) |
+         (static_cast<unsigned long long>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<unsigned long long>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// Orders this thread's writes to shared memory before the wgmma products
+// that read it (the async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -15,12 +15,24 @@ tail, the phi_x chain and the gate, returning ``phi_t [K, B, N, N]`` and
 - On CPU tensors it runs `edge_tangent_reference`, the same math in plain
   torch ops, which is also the kernel's oracle.
 
-A thread block of the kernel takes C tangent columns of one (receiver,
-sample), the N sender rows of each, for 2 <= N <= 64; C comes from the
-kernel's cost model (`default_columns`) unless the caller passes
-``columns_per_block``.  Shapes with no C that fits the card's shared
-memory and registers raise (in float32: U = 256 past 48 nodes).
-``edge_tangent.launch_count`` counts kernel launches; while
+The kernel has two designs, and `resident_route` picks one from the
+shapes it sees:
+
+- ``edge_tangent_bf16_kernel`` / ``edge_tangent_f32_kernel``: a thread
+  block takes C tangent columns of one (receiver, sample), the N sender
+  rows of each, for 2 <= N <= 64; C comes from the kernel's cost model
+  (`default_columns`) unless the caller passes ``columns_per_block``.
+  Shapes with no C that fits the card's shared memory and registers raise
+  (in float32: U = 256 past 48 nodes).  It takes every shape, and is the
+  route for float32, few columns (K=1 Hutchinson probes) and U = 256.
+- ``edge_tangent_bf16_kernel_resident`` (`edge_tangent_resident`): bf16
+  at U <= 128, a persistent kernel that holds the chain's weights in
+  shared memory and runs each edge's 64 columns through wgmma products
+  chained in registers.  The route for bf16 with at least
+  `RESIDENT_MIN_COLUMNS` columns where its shared memory fits.
+
+``edge_tangent.launch_count`` counts the launches of both designs,
+``edge_tangent_resident.launch_count`` those of the resident one; while
 `ops.flops.count_fn_flops` runs, each launch adds `edge_tangent_flops` of
 its unpadded shapes to the count.
 """
@@ -42,6 +54,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_LAYERS = 8
 _MAX_NODES = 64  # the kernel's kMaxEdgeNodes
 _UNITS = (32, 64, 128, 256)
+_RESIDENT_UNITS = (32, 64, 128)
+# Tangent columns from which bf16 takes the resident kernel.  On an H100
+# SXM at B=48, N=13, U=128, L=3 the resident kernel takes ~230 us for any
+# K <= 64 (one 64-row tile an edge), the other design 211 us at K=18 and
+# 302 us at K=24 (PERF.md, kernel 1).
+RESIDENT_MIN_COLUMNS = 24
+SMEM_PER_BLOCK = 232_448  # an H100's opt-in shared memory per thread block
 
 
 def edge_tangent_reference(
@@ -111,6 +130,31 @@ def kernel_units(U: int) -> int:
     raise ValueError(f"edge_tangent: U={U} is wider than the kernel's {_UNITS[-1]}")
 
 
+def resident_smem_bytes(U: int, L: int) -> int:
+    """Dynamic shared memory of the resident kernel at width U and L layers
+    a chain (the kernel's `resident_plan`): the 2L - 1 ``[U, U]`` weights,
+    g_out and x_out in f32 and e_l, then per warpgroup the a_t tile
+    ``[64, U + 8]``, two buffers of the 2L + 1 broadcast vectors and two of
+    64 l2_t values, each part 128-byte aligned."""
+    align = lambda n: (n + 127) // 128 * 128
+    stage = align(64 * (U + 8) * 2) + align(2 * (2 * L + 1) * U * 2) + align(2 * 64 * 4)
+    return align((2 * L - 1) * U * U * 2) + align(U * 10) + 2 * stage
+
+
+def resident_route(dtype: torch.dtype, K: int, B: int, N: int, U: int, L: int) -> bool:
+    """Whether `edge_tangent` takes the resident kernel at these shapes: bf16,
+    at least `RESIDENT_MIN_COLUMNS` tangent columns, a width U (zero-padded
+    to the kernel's) of at most 128, 2 <= N <= 64, and the chain's weights
+    with the two warpgroups' stages within a block's shared memory.  Below
+    that many columns a 64-row tile is mostly padding; at U = 256 neither
+    the weights nor the accumulators fit.  ``B`` does not enter."""
+    if dtype != torch.bfloat16 or K < RESIDENT_MIN_COLUMNS or not 2 <= N <= _MAX_NODES:
+        return False
+    if not (1 <= U <= _RESIDENT_UNITS[-1] and 1 <= L <= _MAX_LAYERS):
+        return False
+    return resident_smem_bytes(kernel_units(U), L) <= SMEM_PER_BLOCK
+
+
 def pad_units(
     a_t: Tensor, b_t: Tensor, l2_t: Tensor,
     d_e: Sequence[Tensor], d_x: Sequence[Tensor], m: Tensor, g: Tensor,
@@ -142,6 +186,10 @@ def _library():
     lib.ecnf_edge_tangent_columns.restype = i32
     lib.ecnf_edge_tangent_plan.argtypes = [i32] * 7 + [ctypes.POINTER(i32)] * 4
     lib.ecnf_edge_tangent_plan.restype = i32
+    lib.ecnf_edge_tangent_resident.argtypes = [i32] * 5 + [ptr] * 16
+    lib.ecnf_edge_tangent_resident.restype = i32
+    lib.ecnf_edge_tangent_resident_smem.argtypes = [i32] * 2
+    lib.ecnf_edge_tangent_resident_smem.restype = i32
     return lib
 
 
@@ -202,6 +250,91 @@ def edge_tangent(
     args = (a_t, b_t, l2_t, d_e, d_x, m, g, gd, e_l, e_tail, x_tail, x_out, g_out)
     if a_t.device.type == "cpu":
         return edge_tangent_reference(*args)
+    K, B, N, U, L = _check_args(*args)
+    cd, dev = a_t.dtype, a_t.device
+    if columns_per_block is None and resident_route(cd, K, B, N, U, L):
+        return edge_tangent_resident(*args)
+
+    width = kernel_units(U)
+    cols = columns_per_block or default_columns(dev.index or 0, cd, K, B, N, width, L)
+    out = _launch(_library().ecnf_edge_tangent, (_DTYPE_CODES[cd], K, B, N, width, L, cols), args,
+                  f"edge_tangent: K={K} B={B} N={N} U={U} L={L} {cd} columns={cols}")
+    edge_tangent.launch_count += 1
+    if flops.counting():
+        flops.add(edge_tangent_flops(K, B, N, U, L, cd))
+    return out
+
+
+edge_tangent.launch_count = 0
+
+
+def edge_tangent_resident(
+    a_t: Tensor, b_t: Tensor, l2_t: Tensor,
+    d_e: Sequence[Tensor], d_x: Sequence[Tensor], m: Tensor, g: Tensor,
+    gd: Tensor, e_l: Tensor, e_tail: Sequence[Tensor],
+    x_tail: Sequence[Tensor], x_out: Tensor, g_out: Tensor,
+) -> Tuple[Tensor, Tensor]:
+    """The edge tangent chain through the resident kernel, at any K >= 1
+    (`edge_tangent` takes it where `resident_route` holds).  CUDA bf16
+    tensors as `edge_tangent` takes them, with U <= 128 (zero-padded to 32,
+    64 or 128); raises on anything else.  Launches on the current stream
+    without synchronising, and counts the launch in both
+    ``edge_tangent_resident.launch_count`` and ``edge_tangent.launch_count``.
+    """
+    args = (a_t, b_t, l2_t, d_e, d_x, m, g, gd, e_l, e_tail, x_tail, x_out, g_out)
+    K, B, N, U, L = _check_args(*args)
+    if a_t.dtype != torch.bfloat16 or U > _RESIDENT_UNITS[-1]:
+        raise ValueError(f"edge_tangent_resident: takes bfloat16 at U <= {_RESIDENT_UNITS[-1]}, "
+                         f"got {a_t.dtype} at U={U}")
+    out = _launch(_library().ecnf_edge_tangent_resident, (K, B, N, kernel_units(U), L), args,
+                  f"edge_tangent_resident: K={K} B={B} N={N} U={U} L={L}")
+    edge_tangent_resident.launch_count += 1
+    edge_tangent.launch_count += 1
+    if flops.counting():
+        flops.add(edge_tangent_flops(K, B, N, U, L, torch.bfloat16))
+    return out
+
+
+edge_tangent_resident.launch_count = 0
+
+
+def _launch(fn, lead: tuple, args: tuple, what: str) -> Tuple[Tensor, Tensor]:
+    """``fn(*lead, <the chain's pointers>, phi_t, mi_t, stream)`` on the
+    current stream, with U zero-padded to the kernel's width (`pad_units`);
+    returns ``(phi_t, mi_t)`` with mi_t cut back to U, and raises if the
+    launch failed."""
+    K, B, N, U = args[0].shape
+    width = kernel_units(U)
+    if width != U:
+        args = pad_units(*args, width=width)
+    a_t, b_t, l2_t, d_e, d_x, m, g, gd, e_l, e_tail, x_tail, x_out, g_out = args
+    dev = a_t.device
+    phi_t = torch.empty((K, B, N, N), dtype=torch.float32, device=dev)
+    mi_t = torch.empty((K, B, N, width), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            *lead,
+            a_t.data_ptr(), b_t.data_ptr(), l2_t.data_ptr(),
+            _pointers(d_e), _pointers(d_x),
+            m.data_ptr(), g.data_ptr(), gd.data_ptr(), e_l.data_ptr(),
+            _pointers(e_tail), _pointers(x_tail),
+            x_out.data_ptr(), g_out.data_ptr(),
+            phi_t.data_ptr(), mi_t.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed (cudaError {err})")
+    return phi_t, mi_t[..., :U]
+
+
+def _check_args(
+    a_t: Tensor, b_t: Tensor, l2_t: Tensor,
+    d_e: Sequence[Tensor], d_x: Sequence[Tensor], m: Tensor, g: Tensor,
+    gd: Tensor, e_l: Tensor, e_tail: Sequence[Tensor],
+    x_tail: Sequence[Tensor], x_out: Tensor, g_out: Tensor,
+) -> Tuple[int, int, int, int, int]:
+    """Raise unless the arguments are what both kernels take; returns
+    ``(K, B, N, U, L)``."""
     if a_t.device.type != "cuda":
         raise ValueError(f"edge_tangent: unsupported device {a_t.device}")
     K, B, N, U = a_t.shape
@@ -227,34 +360,4 @@ def edge_tangent(
     for name, ks in (("e_tail", e_tail), ("x_tail", x_tail)):
         for l, k in enumerate(ks):
             check_tensor(f"{name}[{l}]", k, (U, U), cd, dev)
-
-    width = kernel_units(U)
-    if width != U:
-        (a_t, b_t, l2_t, d_e, d_x, m, g, gd, e_l, e_tail, x_tail, x_out,
-         g_out) = pad_units(*args, width=width)
-    phi_t = torch.empty((K, B, N, N), dtype=torch.float32, device=dev)
-    mi_t = torch.empty((K, B, N, width), dtype=torch.float32, device=dev)
-    cols = columns_per_block or default_columns(dev.index or 0, cd, K, B, N, width, L)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().ecnf_edge_tangent(
-            _DTYPE_CODES[cd], K, B, N, width, L, cols,
-            a_t.data_ptr(), b_t.data_ptr(), l2_t.data_ptr(),
-            _pointers(d_e), _pointers(d_x),
-            m.data_ptr(), g.data_ptr(), gd.data_ptr(), e_l.data_ptr(),
-            _pointers(e_tail), _pointers(x_tail),
-            x_out.data_ptr(), g_out.data_ptr(),
-            phi_t.data_ptr(), mi_t.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"edge_tangent: kernel launch failed (cudaError {err}) for K={K} B={B} N={N} "
-            f"U={U} L={L} {cd} columns={cols}"
-        )
-    edge_tangent.launch_count += 1
-    if flops.counting():
-        flops.add(edge_tangent_flops(K, B, N, U, L, cd))
-    return phi_t, mi_t[..., :U]
-
-
-edge_tangent.launch_count = 0
+    return K, B, N, U, L

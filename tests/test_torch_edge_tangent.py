@@ -140,3 +140,51 @@ def test_kernel_units():
         32, 32, 32, 32, 64, 64, 128, 256]
     with pytest.raises(ValueError, match="wider"):
         et.kernel_units(257)
+
+
+# The route rule at the shapes of the port's programs and cells:
+# (dtype, K, B, N, U, L, resident).
+ROUTES = [
+    (torch.bfloat16, 162, 16, 55, 128, 3, True),    # the LJ55 cell
+    (torch.bfloat16, 36, 48, 13, 128, 3, True),     # LJ13 exact (`sample --with-log-prob`)
+    (torch.bfloat16, 36, 64, 13, 128, 3, True),     # LJ13's evaluation batch
+    (torch.bfloat16, 63, 16, 22, 64, 2, True),      # the ALDP serving shape in bf16
+    (torch.bfloat16, 6, 64, 4, 128, 3, False),      # the DW4 training program
+    (torch.bfloat16, 1, 256, 19, 256, 4, False),    # the QM9 Hutchinson cell
+    (torch.bfloat16, 1, 256, 22, 64, 2, False),     # ALDP Hutchinson
+    (torch.bfloat16, 54, 64, 19, 256, 4, False),    # QM9 exact: U = 256
+    (torch.float32, 162, 16, 55, 128, 3, False),    # float32
+    (torch.float32, 36, 48, 13, 128, 3, False),
+    (torch.bfloat16, 162, 16, 55, 128, 4, False),   # 7 weights past shared memory
+    (torch.bfloat16, 162, 16, 65, 128, 3, False),   # past 64 nodes
+    (torch.bfloat16, 162, 16, 55, 100, 3, True),    # zero-padded to 128
+    (torch.bfloat16, 162, 16, 55, 16, 1, True),     # zero-padded to 32
+]
+
+
+@pytest.mark.parametrize("dtype,K,B,N,U,L,resident", ROUTES)
+def test_resident_route(dtype, K, B, N, U, L, resident):
+    assert et.resident_route(dtype, K, B, N, U, L) is resident
+
+
+def test_resident_route_threshold():
+    K = et.RESIDENT_MIN_COLUMNS
+    assert et.resident_route(torch.bfloat16, K, 2, 13, 128, 3)
+    assert not et.resident_route(torch.bfloat16, K - 1, 2, 13, 128, 3)
+
+
+@pytest.mark.parametrize("U,L,nbytes", [(128, 3, 208_128), (128, 2, 140_544), (64, 2, 47_232),
+                                        (32, 1, 14_464), (128, 4, 275_712)])
+def test_resident_smem_bytes(U, L, nbytes):
+    # The weights, the vectors, and two warpgroup stages (the a_t tile, two
+    # buffers of 2L + 1 vectors and of 64 l2_t values), 128-byte aligned.
+    assert et.resident_smem_bytes(U, L) == nbytes
+    assert (nbytes <= et.SMEM_PER_BLOCK) == (L < 4)
+
+
+def test_resident_wrapper_raises_on_cpu_tensors():
+    args = torch_args(edge_inputs(2, 2, 5, 32, 2, seed=0), torch.bfloat16)
+    before = (et.edge_tangent.launch_count, et.edge_tangent_resident.launch_count)
+    with pytest.raises(ValueError, match="unsupported device"):
+        et.edge_tangent_resident(**args)
+    assert (et.edge_tangent.launch_count, et.edge_tangent_resident.launch_count) == before

@@ -19,8 +19,12 @@ cases put ragged row counts (C * N % 16 != 0), a K that C does not divide,
 and C = 1, the default and the largest C that launches through it.  Widths
 the kernel does not take (U = 4, 16, 100) go through its zero-padding.
 Past 32 nodes (N = 33, 55, 64) the kernel is held to its plain version at
-the same limits, and the cost model's picks at the LJ13 and QM9 shapes are
-pinned.
+the same limits, and the cost model's picks at the LJ13, QM9 and LJ55
+shapes are pinned.  The resident bf16 design (`edge_tangent_resident`) is
+held to the plain version at the bf16 limit at the LJ55 and LJ13 shapes,
+at column counts that leave a 64-column group ragged, and across N, L and
+U; `edge_tangent` takes it where `resident_route` says, and two of its
+launches agree bit for bit.
 """
 import pytest
 import torch
@@ -160,18 +164,23 @@ def test_64_nodes_at_the_widest_units(cuda):
 
 # The cost model's picks and plans at the LJ13 (K=36, B=48) and QM9 (K=54,
 # B=64) shapes of `chip_smoke.py`'s phase 3, as they were while the kernel
-# took at most 32 nodes: taking more left them as they are.
+# took at most 32 nodes: taking more left them as they are; and at the LJ55
+# cell's shape (K=162, B=16, N=55), where the resident design now runs bf16
+# but a caller's ``columns_per_block`` still takes this one.
 PLANS = [
     (torch.bfloat16, (36, 48, 13, 128, 3), 18, (211072, 1, 4, 0)),
     (torch.float32, (36, 48, 13, 128, 3), 7, (99328, 2, 3, 0)),
     (torch.bfloat16, (54, 64, 19, 256, 4), 5, (191104, 1, 3, 0)),
     (torch.float32, (54, 64, 19, 256, 4), 2, (89856, 2, 3, 0)),
+    (torch.bfloat16, (162, 16, 55, 128, 3), 3, (206464, 1, 3, 0)),
+    (torch.float32, (162, 16, 55, 128, 3), 1, (79872, 2, 2, 0)),
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,shape,cols,plan", PLANS, ids=["lj13-bf16", "lj13-f32",
-                                                             "qm9-bf16", "qm9-f32"])
+                                                             "qm9-bf16", "qm9-f32", "lj55-bf16",
+                                                             "lj55-f32"])
 def test_plans_up_to_32_nodes_are_pinned(cuda, dtype, shape, cols, plan):
     assert et.default_columns(0, dtype, *shape) == cols
     got = et.launch_plan(0, dtype, *shape, cols)
@@ -351,3 +360,69 @@ def test_kernel_wrapper_rejects_bad_arguments(cuda):
         et.edge_tangent(**dict(args, m=args["m"].double()))
     with pytest.raises(ValueError):
         et.edge_tangent(**dict(args, g=args["g"][..., None]))
+
+
+# The resident design: the LJ55 cell's and LJ13's shapes; K that leaves the
+# last 64-column group ragged (1, 34, 65, 162) or not (64); N, L and U.
+RESIDENT = [
+    (162, 16, 55, 128, 3), (36, 48, 13, 128, 3),
+    *[(K, 2, 13, 128, 3) for K in (1, 34, 64, 65, 162)],
+    *[(40, 2, N, 128, 3) for N in (2, 13, 64)],
+    *[(40, 2, 7, 128, L) for L in (1, 2, 3)],
+    *[(66, 2, 9, U, 2) for U in (32, 64, 128)],
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,B,N,U,L", RESIDENT)
+def test_resident_matches_plain(cuda, K, B, N, U, L):
+    args = torch_args(edge_inputs(K, B, N, U, L, seed=10), torch.bfloat16, cuda)
+    before = (et.edge_tangent.launch_count, et.edge_tangent_resident.launch_count)
+    out = et.edge_tangent_resident(**args)
+    torch.cuda.synchronize()
+    assert (et.edge_tangent.launch_count, et.edge_tangent_resident.launch_count) == (
+        before[0] + 1, before[1] + 1)
+    _check(out, et.edge_tangent_reference(**args), 1e-2)
+
+
+@pytest.mark.gpu
+def test_resident_launches_agree_bit_for_bit(cuda):
+    args = torch_args(edge_inputs(70, 3, 13, 128, 3, seed=11), torch.bfloat16, cuda)
+    first = et.edge_tangent_resident(**args)
+    again = et.edge_tangent_resident(**args)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,B,N,U,L", [(162, 2, 55, 128, 3), (1, 4, 19, 256, 4), (36, 2, 13, 128, 3),
+                                       (6, 4, 4, 128, 3), (40, 2, 9, 64, 2)])
+def test_edge_tangent_takes_the_route_rule(cuda, K, B, N, U, L):
+    args = torch_args(edge_inputs(K, B, N, U, L, seed=12), torch.bfloat16, cuda)
+    before = (et.edge_tangent.launch_count, et.edge_tangent_resident.launch_count)
+    out = et.edge_tangent(**args)
+    torch.cuda.synchronize()
+    resident = int(et.resident_route(torch.bfloat16, K, B, N, U, L))
+    assert (et.edge_tangent.launch_count, et.edge_tangent_resident.launch_count) == (
+        before[0] + 1, before[1] + resident)
+    _check(out, et.edge_tangent_reference(**args), 1e-2)
+
+
+@pytest.mark.gpu
+def test_resident_shared_memory_and_refusals(cuda):
+    lib = et._library()
+    for U in (32, 64, 128):
+        for L in (1, 2, 3, 4):
+            assert lib.ecnf_edge_tangent_resident_smem(U, L) == et.resident_smem_bytes(U, L)
+    assert lib.ecnf_edge_tangent_resident_smem(256, 1) == 0
+    f32 = torch_args(edge_inputs(40, 2, 5, 64, 2, seed=13), torch.float32, cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        et.edge_tangent_resident(**f32)
+    wide = torch_args(edge_inputs(2, 1, 5, 256, 1, seed=13), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="U <= 128"):
+        et.edge_tangent_resident(**wide)
+    # U = 128 at L = 4: 7 resident weights are past the card's shared memory.
+    deep = torch_args(edge_inputs(40, 1, 5, 128, 4, seed=13), torch.bfloat16, cuda)
+    assert not et.resident_route(torch.bfloat16, 40, 1, 5, 128, 4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        et.edge_tangent_resident(**deep)

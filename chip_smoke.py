@@ -9,38 +9,33 @@ Phases, one or more lines each:
    count of tensor-core (HMMA, and HGMMA for wgmma) instructions in each
    library (``cuobjdump -sass``); each must have some, since every
    kernel's dense passes run on the tensor cores (bf16, or f32 in 3xTF32);
-3. kernel vs plain: the edge-tangent kernel against
-   `edge_tangent_reference` at the LJ13 and QM9 shapes, in float32 and
-   bfloat16 (LJ13 bf16 takes the resident design, phase 21), with times,
-   the default columns per thread block of the other design and its
-   shared memory and blocks per SM; then that design at every column count
-   per thread block that launches, each checked against the plain version
-   at the same limit and timed;
-4. serving: ``python -m ecnf_tpu_torch.sample``'s code path at the full
-   LJ13 width (3 blocks of [128]*3, hidden 64, bf16, batch 48, rk4 step
-   0.05, exact trace), with its kernel launches counted; then the same
-   solve in float32 through the kernel, through the plain version and
-   through the ``torch.func.jvp`` trace;
-5. the same serving run with the fixed-step Dopri5 solver;
-6. EGCL forward: `flat_egnn_apply_fused`'s kernel against its plain
-   version at LJ13 width (B=48 and the B=256 of `scripts/bench_pallas.py`)
-   and at QM9 width (5 blocks of [256]*4, hidden 32, B=64), f32, with
-   times, bound, achieved TFLOP/s and share of the bound; then an rk4
-   sample-only solve whose field is
-   `flat_egnn_apply_fused`, its launches counted, against the solve
-   through the field module;
-7. fused trace: `egnn_value_and_div_fused`'s kernel against its plain
-   version at LJ13 (B=48) and for one QM9 evaluation (B=64, 57 columns),
-   with times, bound, achieved TFLOP/s and share of the bound, and the
-   kernel's time at every column count per thread block that launches;
-8. fused serving: ``python -m ecnf_tpu_torch.sample --fused-trace`` at the
-   full LJ13 width with its launches counted, then the float32 solve with
-   ``fused_trace=True`` against the phase-4 references;
-9. timing of the serving solve with CUDA events, in turns (a, b, b, a,
-   twice; median): the structured path's kernel against its plain
-   version (bf16), and the fused path's kernel against its plain version,
-   with the edge kernel's share of the structured solve and the fused
-   kernel's share of the fused solve;
+3. the kernel table (`KERNEL_ROWS`, `kernel_row`): each kernel at the
+   shapes PERF.md section 6 reports, one ``[kernel]`` line a row: the
+   edge-tangent kernel at LJ13 and QM9 in float32 and bfloat16, at the
+   LJ55 cell's launch on both designs in bfloat16 and in float32 (B=2),
+   and at the QM9 cell's Hutchinson launch (K=1); the EGCL forward at
+   LJ13 (B=48 and 256) and QM9 (B=64), the fused trace at LJ13 (B=48) and
+   QM9 (B=64); the primal edge-chain kernel at the QM9 Hutchinson, LJ13,
+   ALDP and LJ55 shapes.  Each row checks the kernel against its plain
+   version at the row's limit (``EDGE_LIMITS``, ``F32_LIMIT``), times both
+   by CUDA events and reads its bound (below);
+4. the serving table (`SERVE_ROWS`, `serve_row`): ``python -m
+   ecnf_tpu_torch.sample``'s code path in bf16 with each kernel's launches
+   counted, one ``[serve]`` line a row: LJ13's full width (3 blocks of
+   [128]*3, hidden 64, batch 48, exact trace) on rk4 (step 0.05), whose
+   ``edge_tangent`` and ``edge_primal`` launches must each be 3 per field
+   evaluation, on fixed-step Dopri5 and with ``--fused-trace`` (one
+   launch per evaluation); the LJ55 cell's rk4 exact solve (B=16), whose
+   240 edge-tangent launches must all take the resident design, and the
+   QM9 cell's rk4 Hutchinson solve (5 blocks of [256]*4, hidden 32,
+   B=256), whose 400 must all take the other one, the primal kernel's
+   launches as many in both;
+5. the LJ13 solve in float32 through the edge kernels, against the plain
+   version and the ``torch.func.jvp`` trace;
+6. the same with ``fused_trace=True`` against the same references;
+7. an rk4 sample-only solve whose field is `flat_egnn_apply_fused`, its
+   EGCL launches counted, against the solve through the field module;
+8-9. not used (10-18 keep the numbers the tests and the docs cite);
 10. train step (`ecnf_tpu_torch.training`, the plain torch EGNN under
    autograd, as in JAX; no custom kernel runs, and the counts must stay
    0): (a) f32 parity of the card against the CPU on the same weights,
@@ -115,7 +110,7 @@ Phases, one or more lines each:
    solve, each solve's steps and attempts, the distance-histogram figures
    written as SVG and parsed; (c) the edge kernel at the ALDP Hutchinson
    shape (K=1, B=256, N=22, U=64, L=2, bf16) on one field evaluation's
-   inputs captured in (b), against its plain version at phase 3's limit,
+   inputs captured in (b), against its plain version at the kernel table's limit,
    timed against its bound, with its share of (b)'s evaluations; (d) the
    ``--local`` ALDP and DW4 programs on the card (evaluations at -1 and
    9), whose edge widths of 4 and 16 the kernel takes zero-padded, each
@@ -153,49 +148,31 @@ Phases, one or more lines each:
    ALDP fixture's field against `value_and_exact_divergence`; (e)
    `parallel.dryrun.dryrun_multichip(1)` on the card.
 18. FLOP counts (`ecnf_tpu_torch.ops.flops`), each in a call of its own:
-   (a) phase 9's structured rk4 serving solve (bf16, B=48) through the edge
-   kernel and through its plain version, whose counts must be equal, with
-   TFLOP a solve and the MFU of phase 9's median solve time; (b) the same
-   for the fused rk4 solve; the edge kernel at a width it takes
-   zero-padded (U=16), counted as its plain version; (c) phase 10's
-   counts of the QM9 flagship step (taken there) with their TFLOP/s and
-   MFU; (d) phase 11's adaptive f32 evaluation solve, whose count is
-   flagged ``has_while`` and whose MFU is None.  MFU is read against the
-   H100 SXM's published dense peaks (bf16 989 TFLOP/s; f32 as 3xTF32,
-   495 / 3, under the matmul precision "highest" that this script sets).
-19. the primal edge-chain kernel (`ops/edge_primal.py`; run right after
-   phase 3): at the QM9 Hutchinson shape (B=256, N=19, U=256, L=4, hidden
-   32), at LJ13 (B=48, N=13, U=128, L=3, hidden 64) and at ALDP (B=256,
-   N=22, U=64, L=2, hidden 32), each on block 0's bf16 weights of a CNF of
-   those widths: its time per launch, its bound (the bytes it must move and
-   its products), its share of the bound, the plain version's
-   time and the largest error of each output against plain (limit
-   ``EDGE_LIMITS[bf16]``); then one bf16 rk4 Hutchinson solve at the QM9
-   cell's shape (B=256, step 0.05, 1 probe), whose ``edge_primal`` launches
-   must equal its ``edge_tangent`` launches (5 per field evaluation).
-20. both edge kernels past 32 nodes, alone at the LJ55 shape (N=55, the
-   LJ13 network's widths U=128, L=3, hidden 64; run right after phase
-   19): the edge-tangent kernel at the LJ55 cell's launch (K=162 zero-CoM
-   columns, B=16) in bf16, with its cost model's columns per thread block
-   and plan and the time at every column count that launches, and in f32
-   at B=2; the primal kernel at B=16 on block 0's bf16 weights; each
-   against its plain version (limits ``EDGE_LIMITS``) and its bound.
-21. the resident bf16 edge-tangent design (`edge_tangent_resident`; run
-   right after phase 20): at the LJ55 cell's launch and at LJ13 (K=36,
-   B=48) against the other design at its cost model's C and the plain
-   version, with its bound and share, two launches bit-equal; each design's
-   time at K = 6 .. 36 columns (B=48, N=13) and at the DW4 program's shape,
-   where `RESIDENT_MIN_COLUMNS` comes from; one bf16 rk4 exact solve at
-   the LJ55 cell's shape, all 240 of whose edge launches must be resident
-   (phase 19's QM9 Hutchinson solve must have none); and phase 18's (a)
-   FLOP count through each design and the plain route, which must agree.
+   (a) the structured rk4 serving solve (bf16, B=48) through the edge
+   kernel's resident design, through its other design and through its
+   plain version, whose counts must be equal; (b) the same for the fused
+   rk4 solve; the edge kernel at a width it takes zero-padded (U=16),
+   counted as its plain version; (c) phase 10's counts of the QM9 flagship
+   step (taken there) with their TFLOP/s and MFU; (d) phase 11's adaptive
+   f32 evaluation solve, whose count is flagged ``has_while`` and whose
+   MFU is None.  MFU is read against the H100 SXM's published dense peaks
+   (bf16 989 TFLOP/s; f32 as 3xTF32, 495 / 3, under the matmul precision
+   "highest" that this script sets).
 
-Bounds: the larger of the bytes a kernel must move (inputs read once,
-outputs written once) at 3.35 TB/s and its operations at the card's peak
-for their type.  Operations count only the [U, U] edge layers (B N^2 rows
-per stream), so each bound is a lower bound: bf16 products at 989 TFLOP/s;
-f32-accurate ones as three TF32 products at 495 TFLOP/s (3xTF32, the
-tensor-core route the f32 kernels take, which beats f32 FMAs at 67).
+Bounds: the benchmark's frozen formulas, read as its ``*_roofline``
+metrics read them: the larger of a launch's bytes (inputs read once,
+outputs written once) at the HBM rate and its products at the card's
+peaks (``h100_bench/work/peaks.json``; f32-accurate products as three
+TF32 ones), from `edge_chain_flops` / `edge_chain_bytes`,
+`field_eval_flops` / `fused_launch_bytes` (``h100_bench/work/egnn.py``)
+and the primal roofline's `flops` / `nbytes`.  The EGCL rows count the
+forward's products and the field's inputs, outputs and weights once.
+
+Phases 1-7 drive the kernels and the serving paths; 10-18 the programs
+(their numbers are those that the tests and the docs cite).  To run one
+row of the kernel table alone: ``python3 -c "import chip_smoke as c;
+c.kernel_row(c.KERNEL_ROWS[4], c.card_line())"`` (the kernels build at
+their first call).
 
 It then prints one JSON line listing every kernel, the card line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the
@@ -206,6 +183,7 @@ Usage: python3 chip_smoke.py
 """
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -237,21 +215,15 @@ FUSED_LAUNCHES = 20 * 4  # steps x stages: one launch per field evaluation
 # max |kernel - plain| / max |plain| of the field value and of the
 # network's share of the trace; both differ only by the order of f32 sums.
 F32_LIMIT = 1e-4
-# (name, nodes, mlp_units, hidden, blocks, batch) of the EGCL-forward phase.
+# (name, nodes, mlp_units, hidden, blocks, batch) of the EGCL-forward and
+# fused-trace rows of the kernel table: LJ13 (B=48) and one QM9 evaluation.
 EGCL_SHAPES = (
     ("lj13", 13, (128,) * 3, 64, 3, 48),
-    ("lj13", 13, (128,) * 3, 64, 3, 256),
     ("qm9", 19, (256,) * 4, 32, 5, 64),
 )
 KERNELS = ("edge_tangent", "egcl", "fused_trace", "edge_primal")
-# Primal edge-chain phase: (name, B, N, U, L, hidden).
-PRIMAL_SHAPES = (
-    ("qm9_hutch", 256, 19, 256, 4, 32),
-    ("lj13", 48, 13, 128, 3, 64),
-    ("aldp_hutch", 256, 22, 64, 2, 32),
-)
-# Phase 20: the LJ55 cell's edge-tangent launch, and the f32 batch that
-# keeps the plain version's [K, B, N, N, U] f32 tensors to a few GB.
+# The LJ55 cell's edge-tangent launch, and the f32 batch that keeps the
+# plain version's [K, B, N, N, U] f32 tensors to a few GB.
 LJ55_EDGE = dict(K=162, B=16, N=55, U=128, L=3)
 LJ55_F32_BATCH = 2
 # Train phase.  (a) the sizes of `tests/test_torch_train.py`; (b) the QM9
@@ -361,7 +333,6 @@ ALDP_CAPTURE_AT = ALDP_BLOCKS * 20
 # (d) the `--local` programs (ALDP mlp_units [4], DW4 [16]: widths the
 # edge kernel takes zero-padded), cut to evaluations at -1 and 9.
 ALDP_LOCAL_CUTS = ("training.n_eval=1",)
-# Published H100 SXM peaks (dense): HBM bytes/s, bf16 and TF32 tensor-core FLOP/s.
 # Phase 15: the JAX checkpoint that `tests/torch_make_jax_checkpoint.py` writes.
 JAX_FIXTURE = Path("tests") / "torch_fixtures" / "jax_aldp"
 SERVE_EDGE = dict(K=63, B=16, N=22, U=64, L=2)  # f32 exact trace: (N - 1) * 3 columns
@@ -403,9 +374,50 @@ DIST_ALLREDUCE_REPS = 20
 DIST_TRACE_LIMIT = 1e-6
 DIST_FIELD_T = 0.5
 
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-TF32_FLOPS = 495e12
+# The kernel table (phase 3): each kernel at the shapes PERF.md section 6
+# reports, as (kernel, shape name, dtype, shape, reps of the kernel, reps
+# of its plain version).  The edge-tangent rows take the design
+# `resident_route` picks, but for ``blocks`` (the other one at its cost
+# model's C); "qm9_hutch" is the QM9 cell's launch (one probe a sample).
+_EGCL_LJ13, _EGCL_QM9 = (dict(n=n, units=u, hidden=h, blocks=nb, B=B) for _, n, u, h, nb, B in EGCL_SHAPES)
+KERNEL_ROWS = (
+    ("edge_tangent", "lj13", torch.float32, LJ13_EDGE, 20, 20),
+    ("edge_tangent", "lj13", torch.bfloat16, LJ13_EDGE, 20, 20),
+    ("edge_tangent", "qm9", torch.float32, QM9_EDGE, 5, 5),
+    ("edge_tangent", "qm9", torch.bfloat16, QM9_EDGE, 5, 5),
+    ("edge_tangent", "lj55", torch.bfloat16, LJ55_EDGE, 10, 2),
+    ("edge_tangent", "lj55", torch.float32, dict(LJ55_EDGE, B=LJ55_F32_BATCH), 5, 2),
+    ("edge_tangent", "lj55_blocks", torch.bfloat16, dict(LJ55_EDGE, blocks=True), 5, 2),
+    ("edge_tangent", "qm9_hutch", torch.bfloat16, QM9_HUTCH_EDGE, 20, 20),
+    ("egcl", "lj13", torch.float32, _EGCL_LJ13, 10, 10),
+    ("egcl", "lj13_b256", torch.float32, dict(_EGCL_LJ13, B=256), 10, 10),
+    ("egcl", "qm9", torch.float32, _EGCL_QM9, 10, 10),
+    ("fused_trace", "lj13", torch.float32, _EGCL_LJ13, 10, 10),
+    ("fused_trace", "qm9", torch.float32, _EGCL_QM9, 2, 2),
+    ("edge_primal", "qm9_hutch", torch.bfloat16, dict(B=256, N=19, U=256, L=4, hidden=32), 20, 5),
+    ("edge_primal", "lj13", torch.bfloat16, dict(B=48, N=13, U=128, L=3, hidden=64), 20, 5),
+    ("edge_primal", "aldp_hutch", torch.bfloat16, dict(B=256, N=22, U=64, L=2, hidden=32), 20, 5),
+    ("edge_primal", "lj55", torch.bfloat16, dict(B=16, N=55, U=128, L=3, hidden=64), 20, 5),
+)
+# The serving table (phase 4): `python -m ecnf_tpu_torch.sample`'s path
+# (bf16) as (name, arguments after LJ13_ARGS, the launches each kernel must
+# make, the edge-tangent launches of them that take the resident design or
+# None): LJ13 on rk4, Dopri5 and the fused trace, and the LJ55 and QM9
+# cells' rk4 solves.  Every edge-tangent launch of the LJ55 exact solve
+# takes the resident design and none of the QM9 Hutchinson solve's (K=1).
+SERVE_ROWS = (
+    ("lj13 rk4", ["--method", "rk4"], dict(edge_tangent=RK4_LAUNCHES, edge_primal=RK4_LAUNCHES),
+     None),
+    ("lj13 dopri5", ["--method", "dopri5"], dict(edge_tangent=DOPRI5_LAUNCHES), None),
+    ("lj13 rk4 fused", ["--fused-trace", "--method", "rk4"], dict(fused_trace=FUSED_LAUNCHES), None),
+    ("lj55 rk4 exact", ["--n-nodes", "55", "--n-samples", "16", "--batch-size", "16", "--method",
+                        "rk4"], dict(edge_tangent=RK4_LAUNCHES, edge_primal=RK4_LAUNCHES),
+     RK4_LAUNCHES),
+    ("qm9 rk4 hutchinson", ["--n-nodes", "19", "--n-samples", "256", "--batch-size", "256",
+                            "--n-blocks", "5", "--mlp-units", "256", "256", "256", "256",
+                            "--hidden", "32", "--base-scale", "2.0", "--approx", "--method", "rk4"],
+     dict(edge_tangent=20 * 4 * 5, edge_primal=20 * 4 * 5), 0),
+)
 
 
 def check(ok: bool, message: str) -> None:
@@ -441,18 +453,38 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def edge_flop(rows: int, streams: int, L: int, U: int, blocks: int = 1) -> float:
-    """FLOP of the [U, U] edge layers (L - 1 of phi_e, L of phi_x) over
-    ``rows`` edge rows for ``streams`` streams (primal and tangents)."""
-    return 2.0 * rows * streams * (2 * L - 1) * blocks * U * U
+@functools.lru_cache(maxsize=None)
+def card_peaks() -> dict:
+    """This card's published peaks, from the benchmark's
+    ``h100_bench/work/peaks.json``."""
+    kind = torch.cuda.get_device_name(0)
+    table = json.loads((Path(__file__).resolve().parent / "h100_bench" / "work" / "peaks.json").read_text())
+    check(kind in table, f"no published peaks for {kind} in h100_bench/work/peaks.json")
+    return table[kind]
 
 
-def bound(flop: float, nbytes: float, flops_per_s: float, products: int = 1) -> dict:
-    """Least time for the work: ms and what bounds it."""
-    ops_ms = products * flop / flops_per_s * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+def roofline(flops, nbytes: float) -> dict:
+    """Least time of a launch that computes ``flops`` (bf16, f32) and moves
+    ``nbytes``: its products at the card's peaks by the benchmark's
+    `seconds_at_peak` (f32 as three TF32 products under the matmul
+    precision "highest" that `main` sets) or its bytes at the HBM rate,
+    whichever is longer; in ms, with what bounds it and the FLOP."""
+    from h100_bench.work import egnn as work
+
+    ops_ms = 1e3 * work.seconds_at_peak(flops, card_peaks(), torch.get_float32_matmul_precision())
+    bytes_ms = 1e3 * nbytes / card_peaks()["hbm_bytes_per_s"]
     return dict(bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                flop=flop)
+                flop=sum(flops), ops_ms=ops_ms, bytes_ms=bytes_ms, nbytes=nbytes)
+
+
+def edge_bound(K, B, N, U, L, dtype) -> dict:
+    """`roofline` of one edge-tangent launch, by the benchmark's
+    `edge_chain_flops` and `edge_chain_bytes`, as `edge_tangent_roofline`
+    reads it."""
+    from h100_bench.work import egnn as work
+
+    bf16 = dtype == torch.bfloat16
+    return roofline(work.edge_chain_flops(K, B, N, U, L, bf16), work.edge_chain_bytes(K, B, N, U, L, bf16))
 
 
 def rate_line(b: dict, ms: float) -> str:
@@ -461,19 +493,9 @@ def rate_line(b: dict, ms: float) -> str:
 
 
 def _cuobjdump() -> str:
-    """cuobjdump from the CUDA toolkit, or Triton's copy of it."""
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    candidates = [Path(cuda_home) / "bin" / "cuobjdump"]
-    try:
-        import triton
-
-        candidates.append(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
-    except ImportError:
-        pass
-    for c in candidates:
-        if c.exists():
-            return str(c)
-    found = shutil.which("cuobjdump")
+    """cuobjdump from the CUDA toolkit."""
+    found = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" / "cuobjdump"
+    found = str(found) if found.exists() else shutil.which("cuobjdump")
     check(found is not None, "cuobjdump not found")
     return found
 
@@ -525,82 +547,10 @@ def edge_inputs(K, B, N, U, L, dtype, seed):
     )
 
 
-def nbytes(*objs) -> int:
-    """Bytes of every tensor in ``objs`` (lists, tuples and dict values
-    searched)."""
-    total = 0
-    for o in objs:
-        if isinstance(o, torch.Tensor):
-            total += o.numel() * o.element_size()
-        elif isinstance(o, dict):
-            total += nbytes(*o.values())
-        elif isinstance(o, (list, tuple)):
-            total += nbytes(*o)
-    return total
-
-
 def edge_errors(kernel, plain):
     """(max |kernel - plain|, that over max |plain|) of both outputs."""
     abs_err = max((k - p).abs().max().item() for k, p in zip(kernel, plain))
     return abs_err, abs_err / max(p.abs().max().item() for p in plain)
-
-
-def phase_kernel_vs_plain(et) -> dict:
-    results = {}
-    for shape_name, shape in (("lj13", LJ13_EDGE), ("qm9", QM9_EDGE)):
-        for dtype in (torch.float32, torch.bfloat16):
-            args = edge_inputs(**shape, dtype=dtype, seed=1)
-            kernel = et.edge_tangent(**args)
-            plain = et.edge_tangent_reference(**args)
-            torch.cuda.synchronize()
-            abs_err, rel = edge_errors(kernel, plain)
-            reps = 20 if shape_name == "lj13" else 5
-            ms = cuda_ms(lambda: et.edge_tangent(**args), reps)
-            plain_ms = cuda_ms(lambda: et.edge_tangent_reference(**args), reps)
-            name = str(dtype).replace("torch.", "")
-            K, B, N, U, L = (shape[k] for k in ("K", "B", "N", "U", "L"))
-            b = bound(edge_flop(B * N * N, K, L, U), nbytes(args, kernel),
-                      *((BF16_FLOPS, 1) if dtype == torch.bfloat16 else (TF32_FLOPS, 3)))
-            cols = et.default_columns(0, dtype, K, B, N, U, L)
-            plan = et.launch_plan(0, dtype, K, B, N, U, L, cols)
-            if et.resident_route(dtype, K, B, N, U, L):
-                residuals = "the default route is the resident design (phase 21); this plan is the other's"
-            elif dtype == torch.bfloat16:
-                residuals = "silu' rows streamed into shared memory with the weights"
-            elif plan["staged"]:
-                residuals = "residuals staged in shared memory"
-            else:
-                residuals = "residuals read from global memory"
-            print(
-                f"[kernel] {shape_name} {shape} {name}: max_abs_err={abs_err:.3e} "
-                f"rel={rel:.3e} (limit {EDGE_LIMITS[dtype]:.0e}) "
-                f"kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us {rate_line(b, ms)}; "
-                f"{cols} columns per thread block: {plan['smem_bytes']} B of shared memory, "
-                f"{plan['blocks_per_sm']} blocks per SM, {plan['row_tiles']} row tiles per warp, "
-                f"{residuals}",
-                flush=True,
-            )
-            check(math.isfinite(rel) and rel <= EDGE_LIMITS[dtype],
-                  f"edge_tangent {shape_name} {name} rel error {rel:.3e}")
-            results[(shape_name, name)] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **b)
-            # Every column count per thread block that launches (the default
-            # is the kernel's cost model's pick; this shows what each costs).
-            sweep = []
-            for c in range(1, K + 1):
-                try:
-                    et.launch_plan(0, dtype, K, B, N, U, L, c)
-                except ValueError:
-                    break
-                run = lambda: et.edge_tangent(**args, columns_per_block=c)
-                _, rel_c = edge_errors(run(), plain)
-                check(math.isfinite(rel_c) and rel_c <= EDGE_LIMITS[dtype],
-                      f"edge_tangent {shape_name} {name} columns {c}: rel error {rel_c:.3e}")
-                sweep.append(f"{c}:{cuda_ms(run, max(reps // 4, 2)):.3f}")
-            print(f"[kernel] {shape_name} {name} ms per launch by columns per thread block "
-                  f"(each within the limit): {' '.join(sweep)}", flush=True)
-            del args, kernel, plain
-            torch.cuda.empty_cache()
-    return results
 
 
 def primal_inputs(B, N, U, L, hidden, seed):
@@ -623,253 +573,6 @@ def primal_inputs(B, N, U, L, hidden, seed):
     return hb @ wt.e_s, hb @ wt.e_r, (torch.cdist(pos, pos) ** 2).contiguous(), wt
 
 
-def phase_edge_primal(ep, et, sampling, card: str) -> dict:
-    """Phase 19: the primal edge-chain kernel against its plain version,
-    timed against its bound, and its launches in a bf16 solve."""
-    from h100_bench.metrics.edge_primal_roofline import nbytes as primal_bytes
-
-    results = {}
-    for name, B, N, U, L, hidden in PRIMAL_SHAPES:
-        a, b, l2, wt = primal_inputs(B, N, U, L, hidden, seed=11)
-        kernel = ep.edge_primal(a, b, l2, wt)
-        plain = ep.edge_primal_reference(a, b, l2, wt)
-        torch.cuda.synchronize()
-        errs = {}
-        for key in ("d_e", "d_x", "m", "phi", "g", "gd", "m_i"):
-            ks, ps = getattr(kernel, key), getattr(plain, key)
-            ks, ps = (ks, ps) if isinstance(ks, tuple) else ((ks,), (ps,))
-            errs[key] = max(((k.float() - p.float()).abs().max() / p.float().abs().max()).item()
-                            for k, p in zip(ks, ps))
-        rel = max(errs.values())
-        ms = cuda_ms(lambda: ep.edge_primal(a, b, l2, wt), 20)
-        plain_ms = cuda_ms(lambda: ep.edge_primal_reference(a, b, l2, wt), 5)
-        flop = ep.edge_primal_flops(B, N, U, L, torch.bfloat16).total
-        nb = primal_bytes(B, N, U, L)
-        bd = bound(flop, nb, BF16_FLOPS)
-        print(
-            f"[primal] {name} B={B} N={N} U={U} L={L} bf16: kernel {ms * 1e3:.1f} us, plain "
-            f"{plain_ms * 1e3:.1f} us; bound {bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']}: "
-            f"{nb / 1e6:.1f} MB at 3.35 TB/s {nb / HBM_BYTES_PER_S * 1e6:.1f} us, {flop / 1e9:.3f} "
-            f"GFLOP at 989 TFLOP/s {flop / BF16_FLOPS * 1e6:.1f} us); share "
-            f"{bd['bound_ms'] / ms:.3f}; max err / max |plain| {rel:.3e} (limit "
-            f"{EDGE_LIMITS[torch.bfloat16]:.0e}; "
-            + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
-            + f"); on {card}",
-            flush=True,
-        )
-        check(math.isfinite(rel) and rel <= EDGE_LIMITS[torch.bfloat16],
-              f"edge_primal {name}: rel error {rel:.3e}")
-        results[name] = dict(abs_err=rel, ms=ms, plain_ms=plain_ms, **bd)
-        del a, b, l2, wt, kernel, plain
-        torch.cuda.empty_cache()
-
-    # One bf16 rk4 Hutchinson solve at the QM9 cell's shape.
-    from ecnf_tpu_torch.cnf.build import build_cnf
-
-    cnf = build_cnf(n_frames=19, dim=3, sigma_min=1e-6, base_scale=2.0, n_blocks_egnn=5,
-                    mlp_units=(256,) * 4, n_invariant_feat_hidden=32, time_embedding_dim=8,
-                    n_features=1, compute_dtype="bfloat16", device="cuda",
-                    generator=torch.Generator().manual_seed(12))
-    feats = torch.zeros((256, 19), dtype=torch.int64, device="cuda")
-    cfg = sampling.SolveConfig(use_fixed_step_size=True, step_size=0.05, method="rk4",
-                               hutchinson_probes=1)
-    x0 = cnf.sample_base((256,), generator=torch.Generator().manual_seed(13))
-    zero_counts()
-    resident = et.edge_tangent_resident.launch_count
-    t0 = time.perf_counter()
-    x1, lq = sampling.sample_and_log_prob_cnf(cnf, 256, feats, approx=True, cfg=cfg, x0=x0)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launched = counts()
-    resident = et.edge_tangent_resident.launch_count - resident
-    print(f"[primal] bf16 rk4 Hutchinson solve, QM9 width, B=256: {launched['edge_primal']} "
-          f"edge_primal and {launched['edge_tangent']} edge_tangent launches (expected "
-          f"{20 * 4 * 5} each), {resident} of them resident (K=1: expected 0), {seconds:.3f} s "
-          f"with its first call; on {card}", flush=True)
-    check(bool(torch.isfinite(x1).all() and torch.isfinite(lq).all()), "non-finite bf16 solve")
-    check(launched["edge_primal"] == launched["edge_tangent"] == 20 * 4 * 5 and resident == 0,
-          f"bf16 solve launches {launched}, {resident} resident")
-    results["solve_launches"] = launched["edge_primal"]
-    return results
-
-
-def phase_lj55(ep, et, card: str) -> None:
-    """Phase 20: both edge kernels alone at the LJ55 shape, against their
-    plain versions and their bounds."""
-    from h100_bench.metrics.edge_primal_roofline import nbytes as primal_bytes
-
-    for dtype, batch in ((torch.bfloat16, LJ55_EDGE["B"]), (torch.float32, LJ55_F32_BATCH)):
-        shape = dict(LJ55_EDGE, B=batch)
-        K, B, N, U, L = (shape[k] for k in ("K", "B", "N", "U", "L"))
-        args = edge_inputs(**shape, dtype=dtype, seed=21)
-        kernel = et.edge_tangent(**args)
-        plain = et.edge_tangent_reference(**args)
-        torch.cuda.synchronize()
-        abs_err, rel = edge_errors(kernel, plain)
-        ms = cuda_ms(lambda: et.edge_tangent(**args), 5)
-        plain_ms = cuda_ms(lambda: et.edge_tangent_reference(**args), 2)
-        name = str(dtype).replace("torch.", "")
-        b = bound(edge_flop(B * N * N, K, L, U), nbytes(args, kernel),
-                  *((BF16_FLOPS, 1) if dtype == torch.bfloat16 else (TF32_FLOPS, 3)))
-        cols = et.default_columns(0, dtype, K, B, N, U, L)
-        plan = et.launch_plan(0, dtype, K, B, N, U, L, cols)
-        sweep = []
-        for c in range(1, K + 1):
-            try:
-                et.launch_plan(0, dtype, K, B, N, U, L, c)
-            except ValueError:
-                break
-            run = lambda: et.edge_tangent(**args, columns_per_block=c)
-            _, rel_c = edge_errors(run(), plain)
-            check(math.isfinite(rel_c) and rel_c <= EDGE_LIMITS[dtype],
-                  f"edge_tangent lj55 {name} columns {c}: rel error {rel_c:.3e}")
-            sweep.append(f"{c}:{cuda_ms(run, 2):.3f}")
-        print(
-            f"[lj55] edge_tangent {shape} {name}: max_abs_err={abs_err:.3e} rel={rel:.3e} "
-            f"(limit {EDGE_LIMITS[dtype]:.0e}) kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us "
-            f"{rate_line(b, ms)} (resident design: {et.resident_route(dtype, K, B, N, U, L)}); "
-            f"the other design's {cols} columns per thread block: {plan['smem_bytes']} B of "
-            f"shared memory, {plan['blocks_per_sm']} blocks per SM, {plan['row_tiles']} row tiles "
-            f"per warp, staged={plan['staged']}; ms by columns per block: {' '.join(sweep)}; "
-            f"on {card}",
-            flush=True,
-        )
-        check(math.isfinite(rel) and rel <= EDGE_LIMITS[dtype],
-              f"edge_tangent lj55 {name} rel error {rel:.3e}")
-        del args, kernel, plain
-        torch.cuda.empty_cache()
-
-    B, N, U, L = LJ55_EDGE["B"], LJ55_EDGE["N"], LJ55_EDGE["U"], LJ55_EDGE["L"]
-    a, b, l2, wt = primal_inputs(B, N, U, L, 64, seed=22)
-    kernel = ep.edge_primal(a, b, l2, wt)
-    plain = ep.edge_primal_reference(a, b, l2, wt)
-    torch.cuda.synchronize()
-    rel = max(((k.float() - p.float()).abs().max() / p.float().abs().max()).item()
-              for k, p in zip([*kernel.d_e, *kernel.d_x, *kernel[2:]],
-                              [*plain.d_e, *plain.d_x, *plain[2:]]))
-    ms = cuda_ms(lambda: ep.edge_primal(a, b, l2, wt), 20)
-    plain_ms = cuda_ms(lambda: ep.edge_primal_reference(a, b, l2, wt), 5)
-    flop = ep.edge_primal_flops(B, N, U, L, torch.bfloat16).total
-    bd = bound(flop, primal_bytes(B, N, U, L), BF16_FLOPS)
-    print(f"[lj55] edge_primal B={B} N={N} U={U} L={L} bf16: kernel {ms * 1e3:.1f} us, plain "
-          f"{plain_ms * 1e3:.1f} us; {rate_line(bd, ms)}; max err / max |plain| {rel:.3e} "
-          f"(limit {EDGE_LIMITS[torch.bfloat16]:.0e}); on {card}", flush=True)
-    check(math.isfinite(rel) and rel <= EDGE_LIMITS[torch.bfloat16],
-          f"edge_primal lj55: rel error {rel:.3e}")
-
-
-def phase_resident(et, sampling, card: str) -> dict:
-    """Phase 21: the resident bf16 edge-tangent kernel (`edge_tangent_resident`)
-    against the other design at its cost model's C and the plain version,
-    at the LJ55 and LJ13 (B=48) shapes, timed against its bound; its
-    launches in one LJ55 rk4 exact solve (every edge launch) and the FLOP
-    count of phase 18's bf16 LJ13 solve through each design and the plain
-    route."""
-    from ecnf_tpu_torch.cnf.build import build_cnf
-
-    bf16 = torch.bfloat16
-    results = {}
-    for name, shape in (("lj55", LJ55_EDGE), ("lj13", LJ13_EDGE)):
-        K, B, N, U, L = (shape[k] for k in ("K", "B", "N", "U", "L"))
-        args = edge_inputs(**shape, dtype=bf16, seed=23)
-        resident = et.edge_tangent_resident(**args)
-        again = et.edge_tangent_resident(**args)
-        plain = et.edge_tangent_reference(**args)
-        cols = et.default_columns(0, bf16, K, B, N, U, L)
-        blocks = et.edge_tangent(**args, columns_per_block=cols)
-        torch.cuda.synchronize()
-        abs_err, rel = edge_errors(resident, plain)
-        _, rel_blocks = edge_errors(blocks, plain)
-        same = all(torch.equal(x, y) for x, y in zip(resident, again))
-        reps = 10 if name == "lj55" else 50
-        ms = cuda_ms(lambda: et.edge_tangent_resident(**args), reps)
-        blocks_ms = cuda_ms(lambda: et.edge_tangent(**args, columns_per_block=cols), reps)
-        plain_ms = cuda_ms(lambda: et.edge_tangent_reference(**args), 2)
-        b = bound(edge_flop(B * N * N, K, L, U), nbytes(args, resident), BF16_FLOPS)
-        route = et.resident_route(bf16, K, B, N, U, L)
-        print(
-            f"[resident] {name} {shape} bf16: resident {ms * 1e3:.1f} us ({rate_line(b, ms)}), "
-            f"blocks of C={cols} {blocks_ms * 1e3:.1f} us (share {b['bound_ms'] / blocks_ms:.3f}), "
-            f"plain {plain_ms * 1e3:.1f} us; max err / max |plain| {rel:.3e} (blocks "
-            f"{rel_blocks:.3e}, limit {EDGE_LIMITS[bf16]:.0e}), two launches bit-equal: {same}; "
-            f"{et.resident_smem_bytes(U, L)} B of shared memory; `resident_route`: {route}; "
-            f"on {card}",
-            flush=True,
-        )
-        check(math.isfinite(rel) and rel <= EDGE_LIMITS[bf16], f"resident {name}: rel error {rel:.3e}")
-        check(same, f"resident {name}: two launches differ")
-        results[name] = dict(abs_err=abs_err, ms=ms, blocks_ms=blocks_ms, plain_ms=plain_ms, **b)
-        del args, resident, again, plain, blocks
-        torch.cuda.empty_cache()
-
-    # Where the resident design starts to pay (`RESIDENT_MIN_COLUMNS`): K
-    # columns at LJ13's B=48, the DW4 training program's shape and ALDP's
-    # Hutchinson shape (K=1).
-    sweep = []
-    shapes = [(K, 48, 13, 128, 3) for K in (6, 12, 18, 24, 30, 32, 36)]
-    for K, B, N, U, L in shapes + [(6, 64, 4, 128, 3), tuple(ALDP_HUTCH_EDGE.values())]:
-        args = edge_inputs(K, B, N, U, L, dtype=bf16, seed=26)
-        cols = et.default_columns(0, bf16, K, B, N, U, L)
-        ms = cuda_ms(lambda: et.edge_tangent_resident(**args), 20)
-        blocks_ms = cuda_ms(lambda: et.edge_tangent(**args, columns_per_block=cols), 20)
-        sweep.append(f"K={K} B={B} N={N} U={U} L={L}: {ms * 1e3:.1f} / {blocks_ms * 1e3:.1f}")
-    print(f"[resident] us a launch, resident / blocks: {'; '.join(sweep)}; threshold "
-          f"{et.RESIDENT_MIN_COLUMNS} columns; on {card}", flush=True)
-
-    # One bf16 rk4 exact solve at the LJ55 cell's shape: every edge launch
-    # takes the resident kernel.
-    cnf = build_cnf(n_frames=55, dim=3, sigma_min=0.01, base_scale=1.0, n_blocks_egnn=3,
-                    mlp_units=(128,) * 3, n_invariant_feat_hidden=64, time_embedding_dim=8,
-                    n_features=1, compute_dtype="bfloat16", device="cuda",
-                    generator=torch.Generator().manual_seed(24))
-    feats = torch.zeros((16, 55), dtype=torch.int64, device="cuda")
-    cfg = sampling.SolveConfig(use_fixed_step_size=True, step_size=0.05, method="rk4")
-    x0 = cnf.sample_base((16,), generator=torch.Generator().manual_seed(25))
-    zero_counts()
-    before = et.edge_tangent_resident.launch_count
-    t0 = time.perf_counter()
-    x1, lq = sampling.sample_and_log_prob_cnf(cnf, 16, feats, cfg=cfg, x0=x0)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    resident = et.edge_tangent_resident.launch_count - before
-    edge = counts()["edge_tangent"]
-    print(f"[resident] bf16 rk4 exact solve, LJ55, B=16: {resident} of {edge} edge launches "
-          f"resident (expected {RK4_LAUNCHES} of {RK4_LAUNCHES}), {seconds:.3f} s with its first "
-          f"call; on {card}", flush=True)
-    check(bool(torch.isfinite(x1).all() and torch.isfinite(lq).all()), "non-finite LJ55 solve")
-    check(resident == edge == RK4_LAUNCHES, f"LJ55 solve: {resident} resident of {edge}")
-    results["lj55_solve_launches"] = resident
-    del cnf, x1, lq
-    torch.cuda.empty_cache()
-
-    # Phase 18's (a) count through each design (the cost model's C forces
-    # the other one) and through the plain route.
-    from ecnf_tpu_torch import sample
-
-    args = sample.build_parser().parse_args(LJ13_ARGS)
-    cnf = sample.build_from_args(args, torch.device("cuda"))
-    feats = torch.zeros((48, 13), dtype=torch.int64, device="cuda")
-    x0 = cnf.sample_base((48,), generator=torch.Generator().manual_seed(4))
-    cfg = sampling.SolveConfig(use_fixed_step_size=True, step_size=0.05, method="rk4")
-    resident_before = et.edge_tangent_resident.launch_count
-    kernel, launched = _counted_solve(sampling, cnf, 48, feats, cfg, x0)
-    resident = et.edge_tangent_resident.launch_count - resident_before
-    threshold = et.RESIDENT_MIN_COLUMNS
-    et.RESIDENT_MIN_COLUMNS = LJ13_EDGE["K"] + 1  # the other design
-    try:
-        blocks, _ = _counted_solve(sampling, cnf, 48, feats, cfg, x0)
-    finally:
-        et.RESIDENT_MIN_COLUMNS = threshold
-    plain, _ = _counted_solve(
-        sampling, cnf, 48, feats, dataclasses.replace(cfg, structured_tangent_kernel=False), x0)
-    print(f"[resident] phase 18 (a) count, lj13 rk4 B=48 bf16: {_flop_line(kernel)} with "
-          f"{resident} of {launched['edge_tangent']} launches resident; blocks "
-          f"{_flop_line(blocks)}; plain {_flop_line(plain)}; equal: "
-          f"{kernel == blocks == plain}; on {card}", flush=True)
-    check(kernel == blocks == plain, f"counts differ: {kernel} / {blocks} / {plain}")
-    return results
-
-
 def redraw_dense_(field, seed: int) -> None:
     """Dense kernels -> N(0, 1/fan_in), so the network's trace is O(1)."""
     gen = torch.Generator().manual_seed(seed)
@@ -878,68 +581,6 @@ def redraw_dense_(field, seed: int) -> None:
             if name.endswith("weight") and not name.startswith("embed"):
                 w = torch.randn(p.shape, generator=gen) / math.sqrt(p.shape[1])
                 p.copy_(w)
-
-
-def phase_serving(sample, sampling):
-    """Returns the rk4 launch count and the float32 comparison's set-up
-    and references, which phase 8 reuses: ``(launches, f32)``."""
-    zero_counts()
-    out = sample.main(LJ13_ARGS + ["--method", "rk4"])
-    launches = counts()["edge_tangent"]
-    print(f"[serve] rk4 bf16: kernel launches {launches} (expected {RK4_LAUNCHES})", flush=True)
-    check(out["samples"].shape == (48, 39), f"samples shape {out['samples'].shape}")
-    check(bool(torch.isfinite(torch.from_numpy(out["samples"])).all()), "non-finite samples")
-    check(bool(torch.isfinite(torch.from_numpy(out["log_q"])).all()), "non-finite log q")
-    check(launches == RK4_LAUNCHES, f"rk4 launches {launches} != {RK4_LAUNCHES}")
-
-    # float32, kernel path vs plain path, same x0, weights with an O(1) trace.
-    args = sample.build_parser().parse_args(LJ13_ARGS + ["--dtype", "float32"])
-    cnf = sample.build_from_args(args, torch.device("cuda"))
-    redraw_dense_(cnf.field, seed=2)
-    feats = torch.zeros((48, 13), dtype=torch.int64, device="cuda")
-    x0 = cnf.sample_base((48,), generator=torch.Generator().manual_seed(3))
-    cfg = sampling.SolveConfig(use_fixed_step_size=True, step_size=0.05, method="rk4")
-    x1_k, lq_k = sampling.sample_and_log_prob_cnf(cnf, 48, feats, cfg=cfg, x0=x0)
-    check(bool(torch.isfinite(lq_k).all()), "non-finite f32 log q")
-    _, offset = cnf.exact_trace_plan()
-    # References: the plain edge chain, and the torch.func.jvp trace, which
-    # shares no code with the hand-linearised tangent.
-    refs = {}
-    for ref_name, ref_cfg in (
-        ("plain", dataclasses.replace(cfg, structured_tangent_kernel=False)),
-        ("jvp", dataclasses.replace(cfg, structured_tangent=False)),
-    ):
-        refs[ref_name] = sampling.sample_and_log_prob_cnf(cnf, 48, feats, cfg=ref_cfg, x0=x0)
-        compare_solves("rk4 f32 kernel", (x1_k, lq_k), ref_name, refs[ref_name], cnf, x0, offset)
-
-    zero_counts()
-    out = sample.main(LJ13_ARGS + ["--method", "dopri5"])
-    launches_d = counts()["edge_tangent"]
-    print(f"[serve] dopri5 bf16: kernel launches {launches_d} (expected {DOPRI5_LAUNCHES})", flush=True)
-    check(bool(torch.isfinite(torch.from_numpy(out["log_q"])).all()), "non-finite dopri5 log q")
-    check(launches_d == DOPRI5_LAUNCHES, f"dopri5 launches {launches_d} != {DOPRI5_LAUNCHES}")
-    return launches, dict(cnf=cnf, feats=feats, x0=x0, cfg=cfg, refs=refs)
-
-
-def compare_solves(name, out, ref_name, ref, cnf, x0, offset) -> None:
-    """log q and the network's share of delta log-lik (the constant trace
-    offset, integrated over unit time, taken out) of two solves from x0.
-    Both comparisons resolve one f32 ulp of log q (~4e-6 at |log q| ~ 49),
-    so a 0 means "within it"."""
-    (x1, lq), (x1_r, lq_r) = out, ref
-    net = cnf.log_prob_base(x0) - lq - offset
-    net_r = cnf.log_prob_base(x0) - lq_r - offset
-    rel = ((lq - lq_r).abs().max() / lq_r.abs().max()).item()
-    net_rel = ((net - net_r).abs().max() / net_r.abs().max()).item()
-    x_err = (x1 - x1_r).abs().max().item()
-    print(
-        f"[serve] {name} vs {ref_name}: log_q rel {rel:.3e}, network delta "
-        f"log-lik rel {net_rel:.3e} (limit {LOGQ_LIMIT:.0e} each), x1 max abs "
-        f"{x_err:.3e}, mean network delta {net_r.mean().item():.4f}",
-        flush=True,
-    )
-    check(rel <= LOGQ_LIMIT and net_rel <= LOGQ_LIMIT,
-          f"{name} vs {ref_name}: log_q rel {rel:.3e}, network delta rel {net_rel:.3e}")
 
 
 def f32_cnf(n, units, hidden, blocks, seed):
@@ -966,37 +607,197 @@ def rel_err(out, ref) -> float:
     return ((out - ref).abs().max() / ref.abs().max()).item()
 
 
-def phase_egcl(egcl, ode) -> dict:
-    results = {}
-    for name, n, units, hidden, blocks, B in EGCL_SHAPES:
-        cnf = f32_cnf(n, units, hidden, blocks, seed=5)
-        x, t, f = field_inputs(n, B, seed=6)
-        w = egcl.egnn_weights(cnf.field.egnn)
-        kernel = egcl.flat_egnn_apply_fused(cnf.field, x, t, f, w)
-        plain = egcl.flat_egnn_apply_fused(cnf.field, x, t, f, w, use_kernel=False)
-        torch.cuda.synchronize()
-        abs_err = (kernel - plain).abs().max().item()
-        rel = rel_err(kernel, plain)
-        ms = cuda_ms(lambda: egcl.flat_egnn_apply_fused(cnf.field, x, t, f, w), 10)
-        plain_ms = cuda_ms(
-            lambda: egcl.flat_egnn_apply_fused(cnf.field, x, t, f, w, use_kernel=False), 10
-        )
-        U, L, P = units[0], len(units), w.flat.shape[1]
-        moved = 4 * blocks * (2 * B * n * 3 + 2 * B * n * hidden + B * 8 + P)
-        b = bound(edge_flop(B * n * n, 1, L, U, blocks), moved, TF32_FLOPS, products=3)
-        print(
-            f"[egcl] {name} B={B} N={n} U={U} L={L} blocks={blocks} f32 "
-            f"forward: max_abs_err={abs_err:.3e} rel={rel:.3e} (limit {F32_LIMIT:.0e}) "
-            f"kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us ({blocks} launches) "
-            f"{rate_line(b, ms)}",
-            flush=True,
-        )
-        check(math.isfinite(rel) and rel <= F32_LIMIT, f"egcl {name} B={B} rel error {rel:.3e}")
-        results[(name, B)] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **b)
-        del cnf, w, kernel, plain
-        torch.cuda.empty_cache()
+def _edge_row(dtype, K, B, N, U, L, blocks=False):
+    """The edge-tangent kernel on random inputs: the design `resident_route`
+    picks, or with ``blocks`` the other one at its cost model's C."""
+    from ecnf_tpu_torch.ops import edge_tangent as et
 
-    # The pure-sampling use: an rk4 solve whose field is the fused forward.
+    args = edge_inputs(K, B, N, U, L, dtype=dtype, seed=1)
+    cols = et.default_columns(0, dtype, K, B, N, U, L)
+    if blocks:
+        run = lambda: et.edge_tangent(**args, columns_per_block=cols)
+    else:
+        run = lambda: et.edge_tangent(**args)
+    resident = not blocks and et.resident_route(dtype, K, B, N, U, L)
+    note = "resident design" if resident else f"blocks design, {cols} columns per thread block"
+    return (run, lambda: et.edge_tangent_reference(**args), edge_errors, EDGE_LIMITS[dtype],
+            edge_bound(K, B, N, U, L, dtype), note)
+
+
+def _work_config(n, units, hidden, blocks) -> dict:
+    """The network's widths as the benchmark's formulas read a config."""
+    return dict(n_nodes=n, dim=3, n_invariant_feat_hidden=hidden, time_embedding_dim=8,
+                mlp_units=units, n_blocks_egnn=blocks)
+
+
+def _egcl_row(dtype, n, units, hidden, blocks, B):
+    """`flat_egnn_apply_fused`'s forward, one launch a block.  Its bound: the
+    blocks' products (`field_eval_flops` with no tangent column) and the
+    field's inputs, outputs and weights read once (`fused_launch_bytes`)."""
+    from h100_bench.work import egnn as work
+    from ecnf_tpu_torch.ops import egcl
+
+    cnf = f32_cnf(n, units, hidden, blocks, seed=5)
+    x, t, f = field_inputs(n, B, seed=6)
+    w = egcl.egnn_weights(cnf.field.egnn)
+    cfg = _work_config(n, units, hidden, blocks)
+    return (lambda: egcl.flat_egnn_apply_fused(cnf.field, x, t, f, w),
+            lambda: egcl.flat_egnn_apply_fused(cnf.field, x, t, f, w, use_kernel=False),
+            lambda out, ref: ((out - ref).abs().max().item(), rel_err(out, ref)), F32_LIMIT,
+            roofline(work.field_eval_flops(cfg, B, 0, False), work.fused_launch_bytes(cfg, B)),
+            f"{blocks} launches")
+
+
+def _fused_row(dtype, n, units, hidden, blocks, B):
+    """`egnn_value_and_div_fused` over all N D columns; rel is the larger of
+    the field value's and of the network's share of the trace
+    (``div + 3 final_scaling``)."""
+    from h100_bench.work import egnn as work
+    from ecnf_tpu_torch.ops import fused_trace
+
+    cnf = f32_cnf(n, units, hidden, blocks, seed=9)
+    x, t, f = field_inputs(n, B, seed=10)
+    w = cnf.fused_weights()
+    offset = 3 * cnf.field.egnn.final_scaling.detach()
+    cols = fused_trace.default_columns(0, B, n, 3, hidden, 8, units[0])
+
+    def errors(out, ref):
+        (v, d), (v_p, d_p) = out, ref
+        abs_err = max((v - v_p).abs().max().item(), (d - d_p).abs().max().item())
+        return abs_err, max(rel_err(v, v_p), rel_err(d + offset, d_p + offset))
+
+    cfg = _work_config(n, units, hidden, blocks)
+    return (lambda: fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, w),
+            lambda: fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, w, use_kernel=False),
+            errors, F32_LIMIT,
+            roofline(work.field_eval_flops(cfg, B, n * 3, False), work.fused_launch_bytes(cfg, B)),
+            f"{n * 3} columns, {cols} per thread block")
+
+
+def _primal_row(dtype, B, N, U, L, hidden):
+    """`edge_primal` on block 0's weights; rel is the largest over its
+    outputs (the silu' factors, m, phi, g, gd, m_i) of each one's error
+    over its own largest plain value."""
+    from h100_bench.metrics import edge_primal_roofline as primal
+    from ecnf_tpu_torch.ops import edge_primal as ep
+
+    a, b, l2, wt = primal_inputs(B, N, U, L, hidden, seed=11)
+
+    def errors(out, ref):
+        pairs = [(k.float(), p.float()) for k, p in zip([*out.d_e, *out.d_x, *out[2:]],
+                                                        [*ref.d_e, *ref.d_x, *ref[2:]])]
+        abs_err = max((k - p).abs().max().item() for k, p in pairs)
+        return abs_err, max(((k - p).abs().max() / p.abs().max()).item() for k, p in pairs)
+
+    return (lambda: ep.edge_primal(a, b, l2, wt), lambda: ep.edge_primal_reference(a, b, l2, wt),
+            errors, EDGE_LIMITS[torch.bfloat16],
+            roofline((primal.flops(B, N, U, L), 0.0), primal.nbytes(B, N, U, L)), f"hidden {hidden}")
+
+
+_ROW_SETUP = dict(edge_tangent=_edge_row, egcl=_egcl_row, fused_trace=_fused_row,
+                  edge_primal=_primal_row)
+
+
+def kernel_row(row: tuple, card: str) -> dict:
+    """One row of `KERNEL_ROWS`: the kernel against its plain version at the
+    row's limit, both timed by `cuda_ms`, and the bound.  Prints one
+    ``[kernel]`` line; returns ``abs_err``, ``ms``, ``plain_ms`` and the
+    bound (`roofline`)."""
+    kernel, name, dtype, shape, reps, plain_reps = row
+    run, plain, errors, limit, b, note = _ROW_SETUP[kernel](dtype, **shape)
+    abs_err, rel = errors(run(), plain())
+    ms = cuda_ms(run, reps)
+    plain_ms = cuda_ms(plain, plain_reps)
+    print(f"[kernel] {kernel} {name} {str(dtype)[6:]} {shape}: max_abs_err={abs_err:.3e} "
+          f"rel={rel:.3e} (limit {limit:.0e}) kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us "
+          f"{rate_line(b, ms)}; {note}; on {card}", flush=True)
+    check(math.isfinite(rel) and rel <= limit, f"{kernel} {name} {dtype}: rel error {rel:.3e}")
+    return dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **b)
+
+
+def phase_kernels(card: str) -> dict:
+    """Phase 3: every row of `KERNEL_ROWS`, by (kernel, name, dtype)."""
+    results = {}
+    for row in KERNEL_ROWS:
+        results[row[:3]] = kernel_row(row, card)
+        torch.cuda.empty_cache()
+    return results
+
+
+def serve_row(row: tuple, card: str) -> dict:
+    """One row of `SERVE_ROWS`: ``sample.main`` with its launches of each
+    kernel counted from zero.  Prints one ``[serve]`` line; returns the
+    counts, with the resident design's as ``resident``."""
+    from ecnf_tpu_torch import sample
+    from ecnf_tpu_torch.ops import edge_tangent as et
+
+    name, argv, expected, resident = row
+    args = sample.build_parser().parse_args(LJ13_ARGS + argv)
+    zero_counts()
+    et.edge_tangent_resident.launch_count = 0
+    t0 = time.perf_counter()
+    out = sample.main(LJ13_ARGS + argv)
+    seconds = time.perf_counter() - t0
+    launched = dict(counts(), resident=et.edge_tangent_resident.launch_count)
+    print(f"[serve] {name}, N={args.n_nodes} B={args.batch_size}: launches {launched} (expected "
+          f"{expected}, resident {resident}); {seconds:.3f} s with its set-up; on {card}", flush=True)
+    check(out["samples"].shape == (args.n_samples, args.n_nodes * 3),
+          f"{name}: samples shape {out['samples'].shape}")
+    check(bool(torch.isfinite(torch.from_numpy(out["samples"])).all()), f"{name}: non-finite samples")
+    check(bool(torch.isfinite(torch.from_numpy(out["log_q"])).all()), f"{name}: non-finite log q")
+    check(all(launched[k] == n for k, n in expected.items())
+          and resident in (None, launched["resident"]), f"{name}: launches {launched}")
+    return launched
+
+
+def phase_f32_solves(sample, sampling) -> None:
+    """Phases 5 and 6: the LJ13 float32 rk4 solve through the edge kernels
+    (5) and through the fused trace (6), each against the plain edge chain
+    and the ``torch.func.jvp`` trace from the same x0, on weights with an
+    O(1) trace."""
+    args = sample.build_parser().parse_args(LJ13_ARGS + ["--dtype", "float32"])
+    cnf = sample.build_from_args(args, torch.device("cuda"))
+    redraw_dense_(cnf.field, seed=2)
+    feats = torch.zeros((48, 13), dtype=torch.int64, device="cuda")
+    x0 = cnf.sample_base((48,), generator=torch.Generator().manual_seed(3))
+    cfg = sampling.SolveConfig(use_fixed_step_size=True, step_size=0.05, method="rk4")
+    _, offset = cnf.exact_trace_plan()
+    # The jvp trace shares no code with the hand-linearised tangent.
+    refs = {name: sampling.sample_and_log_prob_cnf(cnf, 48, feats, cfg=ref_cfg, x0=x0)
+            for name, ref_cfg in (("plain", dataclasses.replace(cfg, structured_tangent_kernel=False)),
+                                  ("jvp", dataclasses.replace(cfg, structured_tangent=False)))}
+    for name, route_cfg in (("rk4 f32 kernel", cfg),
+                            ("rk4 f32 fused", dataclasses.replace(cfg, fused_trace=True))):
+        out = sampling.sample_and_log_prob_cnf(cnf, 48, feats, cfg=route_cfg, x0=x0)
+        check(bool(torch.isfinite(out[1]).all()), f"{name}: non-finite log q")
+        for ref_name, ref in refs.items():
+            compare_solves(name, out, ref_name, ref, cnf, x0, offset)
+
+
+def compare_solves(name, out, ref_name, ref, cnf, x0, offset) -> None:
+    """log q and the network's share of delta log-lik (the constant trace
+    offset, integrated over unit time, taken out) of two solves from x0.
+    Both comparisons resolve one f32 ulp of log q (~4e-6 at |log q| ~ 49),
+    so a 0 means "within it"."""
+    (x1, lq), (x1_r, lq_r) = out, ref
+    net = cnf.log_prob_base(x0) - lq - offset
+    net_r = cnf.log_prob_base(x0) - lq_r - offset
+    rel = ((lq - lq_r).abs().max() / lq_r.abs().max()).item()
+    net_rel = ((net - net_r).abs().max() / net_r.abs().max()).item()
+    x_err = (x1 - x1_r).abs().max().item()
+    print(
+        f"[serve] {name} vs {ref_name}: log_q rel {rel:.3e}, network delta "
+        f"log-lik rel {net_rel:.3e} (limit {LOGQ_LIMIT:.0e} each), x1 max abs "
+        f"{x_err:.3e}, mean network delta {net_r.mean().item():.4f}",
+        flush=True,
+    )
+    check(rel <= LOGQ_LIMIT and net_rel <= LOGQ_LIMIT,
+          f"{name} vs {ref_name}: log_q rel {rel:.3e}, network delta rel {net_rel:.3e}")
+
+
+def phase_egcl_solve(egcl, ode) -> int:
+    """Phase 7: an rk4 sample-only solve whose field is the fused forward,
+    its EGCL launches counted, against the solve through the field module."""
     cnf = f32_cnf(13, (128,) * 3, 64, 3, seed=7)
     feats = torch.zeros((48, 13), dtype=torch.int64, device="cuda")
     x0 = cnf.sample_base((48,), generator=torch.Generator().manual_seed(8))
@@ -1020,131 +821,7 @@ def phase_egcl(egcl, ode) -> dict:
     check(bool(torch.isfinite(x1).all()), "non-finite fused-forward samples")
     check(launches == RK4_LAUNCHES, f"egcl launches {launches} != {RK4_LAUNCHES}")
     check(rel <= F32_LIMIT, f"fused-forward solve rel {rel:.3e}")
-    results["launches"] = launches
-    return results
-
-
-def phase_fused_kernel(fused_trace) -> dict:
-    results = {}
-    for name, n, units, hidden, blocks, B, reps in (
-        ("lj13", 13, (128,) * 3, 64, 3, 48, 10),
-        ("qm9", 19, (256,) * 4, 32, 5, 64, 2),
-    ):
-        cnf = f32_cnf(n, units, hidden, blocks, seed=9)
-        x, t, f = field_inputs(n, B, seed=10)
-        w = cnf.fused_weights()
-        v, d = fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, w)
-        v_p, d_p = fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, w, use_kernel=False)
-        torch.cuda.synchronize()
-        offset = 3 * cnf.field.egnn.final_scaling.detach()
-        v_rel, net_rel = rel_err(v, v_p), rel_err(d + offset, d_p + offset)
-        abs_err = max((v - v_p).abs().max().item(), (d - d_p).abs().max().item())
-        cols = fused_trace.default_columns(0, B, n, 3, hidden, 8, units[0])
-        ms = cuda_ms(lambda: fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, w), reps)
-        plain_ms = cuda_ms(
-            lambda: fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, w, use_kernel=False), reps
-        )
-        U, L, ND, P = units[0], len(units), n * 3, w.flat.shape[1]
-        moved = 4 * (2 * B * ND + B * n * hidden + B * 8 + blocks * P + 1 + B)
-        b = bound(edge_flop(B * n * n, 1 + ND, L, U, blocks), moved, TF32_FLOPS, products=3)
-        print(
-            f"[fused] {name} B={B} N={n} U={U} L={L} blocks={blocks} "
-            f"{ND} columns ({cols} per thread block): v rel {v_rel:.3e}, network trace "
-            f"rel {net_rel:.3e} (limit {F32_LIMIT:.0e} each; max |network trace| "
-            f"{(d_p + offset).abs().max().item():.3f}), max_abs_err={abs_err:.3e} "
-            f"kernel={ms * 1e3:.1f}us plain={plain_ms * 1e3:.1f}us {rate_line(b, ms)}",
-            flush=True,
-        )
-        check(math.isfinite(v_rel) and v_rel <= F32_LIMIT, f"fused {name} v rel {v_rel:.3e}")
-        check(math.isfinite(net_rel) and net_rel <= F32_LIMIT, f"fused {name} trace rel {net_rel:.3e}")
-        results[name] = dict(abs_err=abs_err, ms=ms, plain_ms=plain_ms, **b)
-        # Every column count per thread block that launches (the choice above
-        # is the kernel's own, from a cost model; this shows what it costs).
-        sweep = []
-        for c in range(1, ND + 1):
-            run = lambda: fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, w, columns_per_block=c)
-            try:
-                run()
-            except RuntimeError:
-                break
-            sweep.append(f"{c}:{cuda_ms(run, reps):.3f}")
-        print(f"[fused] {name} ms per launch by columns per thread block: {' '.join(sweep)}", flush=True)
-        del cnf, w, v, d, v_p, d_p
-        torch.cuda.empty_cache()
-    return results
-
-
-def phase_fused_serving(sample, sampling, f32) -> int:
-    zero_counts()
-    out = sample.main(LJ13_ARGS + ["--fused-trace", "--method", "rk4"])
-    launches = counts()["fused_trace"]
-    print(f"[serve] rk4 --fused-trace: kernel launches {launches} (expected {FUSED_LAUNCHES})", flush=True)
-    check(out["samples"].shape == (48, 39), f"samples shape {out['samples'].shape}")
-    check(bool(torch.isfinite(torch.from_numpy(out["samples"])).all()), "non-finite fused samples")
-    check(bool(torch.isfinite(torch.from_numpy(out["log_q"])).all()), "non-finite fused log q")
-    check(launches == FUSED_LAUNCHES, f"fused launches {launches} != {FUSED_LAUNCHES}")
-
-    cnf, x0 = f32["cnf"], f32["x0"]
-    cfg = dataclasses.replace(f32["cfg"], fused_trace=True)
-    out = sampling.sample_and_log_prob_cnf(cnf, 48, f32["feats"], cfg=cfg, x0=x0)
-    check(bool(torch.isfinite(out[1]).all()), "non-finite f32 fused log q")
-    _, offset = cnf.exact_trace_plan()
-    for ref_name, ref in f32["refs"].items():
-        compare_solves("rk4 f32 fused", out, ref_name, ref, cnf, x0, offset)
     return launches
-
-
-def phase_timing(sample, sampling, fused_trace, card: str, edge_ms: float,
-                 fused_ms: float) -> dict:
-    """Serving solve per path, ms (median of turns a, b, b, a, twice).
-    ``edge_ms`` and ``fused_ms`` are the edge kernel's (LJ13 bf16) and the
-    fused kernel's times per launch from phases 3 and 7."""
-    args = sample.build_parser().parse_args(LJ13_ARGS)
-    cnf = sample.build_from_args(args, torch.device("cuda"))
-    feats = torch.zeros((48, 13), dtype=torch.int64, device="cuda")
-    x0 = cnf.sample_base((48,), generator=torch.Generator().manual_seed(4))
-    cfg = sampling.SolveConfig(use_fixed_step_size=True, step_size=0.05, method="rk4")
-    fused_cfg = dataclasses.replace(cfg, fused_trace=True)
-
-    def fused_plain(x, t, f, weights=None):
-        return fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, weights, use_kernel=False)
-
-    paths = {
-        "kernel": (cnf, cfg, "bf16"),
-        "plain": (cnf, dataclasses.replace(cfg, structured_tangent_kernel=False), "bf16"),
-        "fused kernel": (cnf, fused_cfg, "f32"),
-        "fused plain": (cnf._replace(fused_value_and_div=fused_plain), fused_cfg, "f32"),
-    }
-    times = {name: [] for name in paths}
-    for a, b in (("plain", "kernel"), ("fused plain", "fused kernel")):
-        for name in (a, b, b, a) * 2:
-            c, c_cfg, _ = paths[name]
-            times[name].append(cuda_ms(
-                lambda: sampling.sample_and_log_prob_cnf(c, 48, feats, cfg=c_cfg, x0=x0), 2
-            ))
-    medians = {}
-    for name, ts in times.items():
-        ms = medians[name] = statistics.median(ts)
-        trace = "exact trace over 36 zero-CoM columns" if "fused" not in name else "exact trace over all 39 columns"
-        print(
-            f"[timing] lj13 rk4 B=48 sample+exact log q, {name} path ({paths[name][2]} MLPs, "
-            f"{trace}): median {ms:.1f} ms/solve, {48e3 / ms:.1f} samples/s "
-            f"(turns {[round(t, 1) for t in ts]}) on {card}",
-            flush=True,
-        )
-    share = RK4_LAUNCHES * edge_ms / medians["kernel"]
-    print(
-        f"[timing] structured kernel path: {RK4_LAUNCHES} edge launches x {edge_ms:.3f} ms "
-        f"(phase 3) = {RK4_LAUNCHES * edge_ms:.1f} ms, {100 * share:.1f}% of the solve",
-        flush=True,
-    )
-    share = FUSED_LAUNCHES * fused_ms / medians["fused kernel"]
-    print(
-        f"[timing] fused kernel path: {FUSED_LAUNCHES} launches x {fused_ms:.3f} ms (phase 7) = "
-        f"{FUSED_LAUNCHES * fused_ms:.1f} ms, {100 * share:.1f}% of the solve",
-        flush=True,
-    )
-    return medians
 
 
 def _train_cnf(q: dict, device, cdt=None, seed=0, n_features=1, sigma_min=0.01, base_scale=1.0):
@@ -1486,7 +1163,7 @@ def captured_edge_args(et, cnf, x, t, feats) -> list:
 
 def eval_kernel_checks(et, fused_trace, cnfs: dict, x, feats) -> dict:
     """Both kernels of the evaluation at its shapes (B=64) against their
-    plain versions, at phase 3's and phase 7's limits: the edge kernel on
+    plain versions, at the kernel table's limits: the edge kernel on
     random inputs and on the inputs of one structured evaluation (per-sample
     times, every block), in f32 and bf16; the fused kernel on that
     evaluation's points.  Returns the bf16 random case's ms and bound."""
@@ -1508,8 +1185,7 @@ def eval_kernel_checks(et, fused_trace, cnfs: dict, x, feats) -> dict:
                   f"edge_tangent B={B} {name} {case}: rel error {rel:.3e}")
         if dtype == torch.bfloat16:
             ms = cuda_ms(lambda: et.edge_tangent(**args), 20)
-            timed = dict(ms=ms, **bound(edge_flop(B * n * n, LJ13_EDGE["K"], 3, 128),
-                                         nbytes(args, et.edge_tangent(**args)), BF16_FLOPS))
+            timed = dict(ms=ms, **edge_bound(LJ13_EDGE["K"], B, n, 128, 3, dtype))
         del args, cases
 
     cnf = cnfs[torch.float32]
@@ -1904,8 +1580,7 @@ def phase_training_program(et, card: str) -> dict:
         ms = cuda_ms(lambda: et.edge_tangent(**args), 50)
         plain_ms = cuda_ms(lambda: et.edge_tangent_reference(**args), 50)
         K, B, N, U, L = (DW4_EDGE[k] for k in ("K", "B", "N", "U", "L"))
-        b = bound(edge_flop(B * N * N, K, L, U), nbytes(args, et.edge_tangent(**args)),
-                  *((BF16_FLOPS, 1) if dtype == torch.bfloat16 else (TF32_FLOPS, 3)))
+        b = edge_bound(K, B, N, U, L, dtype)
         print(f"[dw4] (d) edge_tangent {name} at DW4's shape: kernel {ms * 1e3:.1f} us, plain "
               f"{plain_ms * 1e3:.1f} us, {rate_line(b, ms)}", flush=True)
         timed[name] = dict(ms=ms, plain_ms=plain_ms, **b)
@@ -2002,14 +1677,14 @@ def phase_qm9_program(et, card: str) -> dict:
     abs_err, _ = edge_errors(out, et.edge_tangent_reference(*a))
     ms = cuda_ms(lambda: et.edge_tangent(*a), 20)
     plain_ms = cuda_ms(lambda: et.edge_tangent_reference(*a), 20)
-    b = bound(edge_flop(B * N * N, K, L, U), nbytes(a, out), BF16_FLOPS)
+    b = edge_bound(K, B, N, U, L, torch.bfloat16)
     cols = et.default_columns(0, torch.bfloat16, K, B, N, U, L)
     plan = et.launch_plan(0, torch.bfloat16, K, B, N, U, L, cols)
     solve_ms = sum(r["ms"] for r in rows)
     share = launched["edge_tangent"] * ms / solve_ms
     print(f"[qm9] (b) edge_tangent at the QM9 Hutchinson shape (bf16, block 0): kernel "
           f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, {rate_line(b, ms)} (its "
-          f"operations alone {b['flop'] / BF16_FLOPS * 1e6:.1f} us); cost model: "
+          f"operations alone {b['ops_ms'] * 1e3:.1f} us); cost model: "
           f"{cols} columns per thread block, {plan['smem_bytes']} B of shared memory, "
           f"{plan['blocks_per_sm']} blocks per SM, {plan['row_tiles']} row tiles per warp; "
           f"{launched['edge_tangent']} launches x {ms:.4f} ms = {100 * share:.1f}% of "
@@ -2204,15 +1879,15 @@ def phase_aldp_program(et, card: str) -> dict:
     abs_err, _ = edge_errors(out, et.edge_tangent_reference(*a))
     ms = cuda_ms(lambda: et.edge_tangent(*a), 50)
     plain_ms = cuda_ms(lambda: et.edge_tangent_reference(*a), 50)
-    b = bound(edge_flop(B * N * N, K, L, U), nbytes(a, out), BF16_FLOPS)
+    b = edge_bound(K, B, N, U, L, torch.bfloat16)
     cols = et.default_columns(0, torch.bfloat16, K, B, N, U, L)
     plan = et.launch_plan(0, torch.bfloat16, K, B, N, U, L, cols)
     solve_ms = sum(r["ms"] for r in rows)
     share = launched["edge_tangent"] * ms / solve_ms
     print(f"[aldp] (c) edge_tangent at the ALDP Hutchinson shape (bf16, block 0): kernel "
           f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, {rate_line(b, ms)} (its operations "
-          f"alone {b['flop'] / BF16_FLOPS * 1e6:.1f} us, its {nbytes(a, out) / 1e6:.1f} MB at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s {nbytes(a, out) / HBM_BYTES_PER_S * 1e6:.1f} us); "
+          f"alone {b['ops_ms'] * 1e3:.1f} us, its {b['nbytes'] / 1e6:.1f} MB at "
+          f"{card_peaks()['hbm_bytes_per_s'] / 1e12:.2f} TB/s {b['bytes_ms'] * 1e3:.1f} us); "
           f"cost model: {cols} columns per thread block, {plan['smem_bytes']} B of shared memory, "
           f"{plan['blocks_per_sm']} blocks per SM, {plan['row_tiles']} row tiles per warp; "
           f"{launched['edge_tangent']} launches x {ms:.4f} ms = {100 * share:.1f}% of "
@@ -2353,7 +2028,7 @@ def phase_jax_checkpoint(et, card: str) -> dict:
     abs_err, rel = edge_errors(out, et.edge_tangent_reference(*a))
     ms = cuda_ms(lambda: et.edge_tangent(*a), 50)
     plain_ms = cuda_ms(lambda: et.edge_tangent_reference(*a), 50)
-    b = bound(edge_flop(B * N * N, K, L, U), nbytes(a, out), TF32_FLOPS, products=3)
+    b = edge_bound(K, B, N, U, L, torch.float32)
     print(f"[jax-ckpt] (b) edge_tangent {SERVE_EDGE} float32, block 0 of the first field "
           f"evaluation: max_abs_err={abs_err:.3e} rel={rel:.3e} (limit "
           f"{EDGE_LIMITS[torch.float32]:.0e}); kernel {ms * 1e3:.1f} us, plain "
@@ -2917,10 +2592,11 @@ def _flop_line(count) -> str:
             f"{count.f32 / 1e9:.3f} GFLOP f32)")
 
 
-def phase_flops(sample, sampling, fused_trace, et, card: str, timing: dict, train: dict) -> None:
+def phase_flops(sample, sampling, fused_trace, et, card: str, train: dict) -> None:
     """Phase 18: `ops.flops.count_fn_flops` on the main paths, each count in
-    a call of its own, and the MFU of the times phases 9 and 10 measured."""
-    from ecnf_tpu_torch.ops import egcl, flops
+    a call of its own: each kernel route against its plain route, and the
+    MFU of the train step phase 10 timed."""
+    from ecnf_tpu_torch.ops import flops
 
     start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -2930,27 +2606,35 @@ def phase_flops(sample, sampling, fused_trace, et, card: str, timing: dict, trai
           f"{flops.f32_peak(peaks) / 1e12:.1f} TFLOP/s (matmul precision "
           f"{torch.get_float32_matmul_precision()}); on {card}", flush=True)
 
-    def report(name, kernel, plain, ms):
-        mfu = flops.mfu(kernel, ms / 1e3, kind)
+    def report(name, kernel, plain):
         print(f"[flops] {name}: kernel route {_flop_line(kernel)}, plain route "
-              f"{_flop_line(plain)}, equal: {kernel == plain}; over phase 9's median "
-              f"{ms:.1f} ms a solve: {kernel.total / ms / 1e9:.2f} TFLOP/s, MFU {mfu:.5f}; on {card}",
-              flush=True)
+              f"{_flop_line(plain)}, equal: {kernel == plain}; on {card}", flush=True)
         check(kernel == plain, f"{name}: kernel route {kernel} != plain route {plain}")
-        check(mfu is not None and 0 < mfu <= 1, f"{name}: MFU {mfu}")
 
-    # (a) phase 9's structured rk4 serving solve, (b) its fused solve.
+    # (a) the structured rk4 serving solve through each edge-tangent design
+    # (the route rule takes the resident one at K=36; a threshold past K
+    # forces the other), (b) its fused solve.
     args = sample.build_parser().parse_args(LJ13_ARGS)
     cnf = sample.build_from_args(args, torch.device("cuda"))
     feats = torch.zeros((48, 13), dtype=torch.int64, device="cuda")
     x0 = cnf.sample_base((48,), generator=torch.Generator().manual_seed(4))
     cfg = sampling.SolveConfig(use_fixed_step_size=True, step_size=0.05, method="rk4")
+    resident = et.edge_tangent_resident.launch_count
     kernel, launched = _counted_solve(sampling, cnf, 48, feats, cfg, x0)
+    resident = et.edge_tangent_resident.launch_count - resident
+    threshold = et.RESIDENT_MIN_COLUMNS
+    et.RESIDENT_MIN_COLUMNS = LJ13_EDGE["K"] + 1
+    try:
+        blocks, launched_b = _counted_solve(sampling, cnf, 48, feats, cfg, x0)
+    finally:
+        et.RESIDENT_MIN_COLUMNS = threshold
     plain, launched_p = _counted_solve(
         sampling, cnf, 48, feats, dataclasses.replace(cfg, structured_tangent_kernel=False), x0)
-    check(launched["edge_tangent"] == RK4_LAUNCHES and launched_p["edge_tangent"] == 0,
-          f"(a) launches {launched} / {launched_p}")
-    report("(a) lj13 rk4 B=48 structured, bf16", kernel, plain, timing["kernel"])
+    check(launched["edge_tangent"] == launched_b["edge_tangent"] == RK4_LAUNCHES
+          and launched_p["edge_tangent"] == 0, f"(a) launches {launched} / {launched_b} / {launched_p}")
+    report(f"(a) lj13 rk4 B=48 structured, bf16, {resident} of {RK4_LAUNCHES} edge launches resident",
+           kernel, plain)
+    report("(a) the same through the blocks design", blocks, plain)
 
     def fused_plain(x, t, f, weights=None):
         return fused_trace.egnn_value_and_div_fused(cnf.field, x, t, f, weights, use_kernel=False)
@@ -2961,7 +2645,7 @@ def phase_flops(sample, sampling, fused_trace, et, card: str, timing: dict, trai
         sampling, cnf._replace(fused_value_and_div=fused_plain), 48, feats, fused_cfg, x0)
     check(launched["fused_trace"] == FUSED_LAUNCHES and launched_p["fused_trace"] == 0,
           f"(b) launches {launched} / {launched_p}")
-    report("(b) lj13 rk4 B=48 fused, f32", kernel, plain, timing["fused kernel"])
+    report("(b) lj13 rk4 B=48 fused, f32", kernel, plain)
 
     # The edge kernel at a width it takes zero-padded (`--local` DW4's 16):
     # the padding adds no FLOP.
@@ -2990,22 +2674,6 @@ def phase_flops(sample, sampling, fused_trace, et, card: str, timing: dict, trai
           f"{row['attempts']} attempts ({row['evals']} field evaluations, {launched['edge_tangent']} "
           f"edge launches), has_while {count.has_while}, MFU {mfu}; on {card}", flush=True)
     check(count.has_while and mfu is None and count.total > 0, f"(d) adaptive count {count}, MFU {mfu}")
-    # Each kernel's count per launch at the shapes of PERF.md's kernel table.
-    bf16, f32 = torch.bfloat16, torch.float32
-    per_launch = [
-        (f"edge {name} {str(dt)[6:]}", et.edge_tangent_flops(**shape, dtype=dt))
-        for name, shape, dts in (("lj13", LJ13_EDGE, (bf16, f32)), ("qm9", QM9_EDGE, (bf16, f32)),
-                                 ("qm9 hutchinson", QM9_HUTCH_EDGE, (bf16,)),
-                                 ("aldp hutchinson", ALDP_HUTCH_EDGE, (bf16,)),
-                                 ("serving", SERVE_EDGE, (f32,)), ("dw4", DW4_EDGE, (bf16, f32)))
-        for dt in dts
-    ] + [
-        ("egcl lj13 B=48", egcl.egcl_flops(48, 13, 3, 64, 8, 128, 3)),
-        ("fused lj13 B=48", fused_trace.fused_trace_flops(48, 13, 3, 64, 8, 128, 3, 3)),
-        ("fused qm9 B=64", fused_trace.fused_trace_flops(64, 19, 3, 32, 8, 256, 4, 5)),
-    ]
-    print("[flops] per launch: " + "; ".join(f"{name} {_flop_line(c)}" for name, c in per_launch),
-          flush=True)
     print(f"[flops] phase {time.perf_counter() - start:.1f} s; on {card}", flush=True)
 
 
@@ -3017,7 +2685,6 @@ def main() -> None:
     from ecnf_tpu_torch.targets import energies
     from ecnf_tpu_torch.training import setup
     from ecnf_tpu_torch.ops import cuda_build, egcl, fused_trace, ode
-    from ecnf_tpu_torch.ops import edge_primal as ep
     from ecnf_tpu_torch.ops import edge_tangent as et
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3038,16 +2705,10 @@ def main() -> None:
                 print(f"[build]   {line.strip()}")
         check(hmma > 0, f"{name}: no tensor-core instructions")
 
-    edge = phase_kernel_vs_plain(et)
-    primal = phase_edge_primal(ep, et, sampling, card)
-    phase_lj55(ep, et, card)
-    phase_resident(et, sampling, card)
-    launches, f32 = phase_serving(sample, sampling)
-    egcl_results = phase_egcl(egcl, ode)
-    fused = phase_fused_kernel(fused_trace)
-    fused_launches = phase_fused_serving(sample, sampling, f32)
-    timing = phase_timing(sample, sampling, fused_trace, card, edge[("lj13", "bfloat16")]["ms"],
-                          fused["lj13"]["ms"])
+    table = phase_kernels(card)
+    serving = {row[0]: serve_row(row, card) for row in SERVE_ROWS}
+    phase_f32_solves(sample, sampling)
+    egcl_launches = phase_egcl_solve(egcl, ode)
     train = phase_train(card)
     phase_evaluation(sampling, score, setup, energies, et, fused_trace, card)
     phase_training_program(et, card)
@@ -3056,19 +2717,24 @@ def main() -> None:
     served = phase_jax_checkpoint(et, card)
     phase_options(card)
     phase_distributed(card, served["launches"])
-    phase_flops(sample, sampling, fused_trace, et, card, timing, train)
+    phase_flops(sample, sampling, fused_trace, et, card, train)
 
     # Per kernel, its main-path shapes: the LJ13 structured solve's bf16
     # edge chain (one launch), the LJ13 B=48 EGNN forward (three launches),
     # one LJ13 fused evaluation and the QM9 Hutchinson primal edge chain
-    # (one launch; it replaces no Pallas kernel).  No single PyTorch call
-    # computes any of these functions, so library_ms is null.
+    # (one launch; it replaces no Pallas kernel), with the launches of the
+    # serving table's LJ13 rk4, fused and QM9 rows and of phase 7.  No
+    # single PyTorch call computes any of these functions, so library_ms is
+    # null.
+    bf16, f32 = torch.bfloat16, torch.float32
     rows = (
-        ("edge_tangent", "edge_tangent.cu", "tangent_kernel.py:374", launches, edge[("lj13", "bfloat16")]),
-        ("egcl_forward", "egcl.cu", "attic/egcl_kernel.py:200", egcl_results["launches"],
-         egcl_results[("lj13", 48)]),
-        ("fused_trace", "fused_trace.cu", "attic/trace_kernel.py:171", fused_launches, fused["lj13"]),
-        ("edge_primal", "edge_primal.cu", None, primal["solve_launches"], primal["qm9_hutch"]),
+        ("edge_tangent", "edge_tangent.cu", "tangent_kernel.py:374",
+         serving["lj13 rk4"]["edge_tangent"], table[("edge_tangent", "lj13", bf16)]),
+        ("egcl_forward", "egcl.cu", "attic/egcl_kernel.py:200", egcl_launches, table[("egcl", "lj13", f32)]),
+        ("fused_trace", "fused_trace.cu", "attic/trace_kernel.py:171",
+         serving["lj13 rk4 fused"]["fused_trace"], table[("fused_trace", "lj13", f32)]),
+        ("edge_primal", "edge_primal.cu", None, serving["qm9 rk4 hutchinson"]["edge_primal"],
+         table[("edge_primal", "qm9_hutch", bf16)]),
     )
     print(json.dumps({"kernels": [
         {

@@ -7,18 +7,31 @@ beside it and of the macros in ``ECNF_CUDA_DEFINES`` (space-separated
 names, each passed as ``-D``; `kernel_probe.py` builds with
 ``ECNF_PROBE``); the library is loaded with ctypes.  Nothing here runs when
 a module is imported: the CPU tests import every module and have no nvcc.
+
+It also holds the foreign-call code the kernel wrappers share: the binding
+of a library's entry points to their C signatures (`bind`), the pointer
+arrays (`pointers`), and the one launch call (`launch`: the device, the
+current stream, the cudaError check, the launch counters and the FLOP
+count).
 """
 import ctypes
 import functools
 import hashlib
+import inspect
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
+
+from ecnf_tpu_torch.ops import flops
+
+PTR, I32 = ctypes.c_void_p, ctypes.c_int
+MAX_LAYERS = 8  # csrc/egnn_device.cuh: kMaxLayers, the length of every pointer array
+_POINTER_ARRAY = PTR * MAX_LAYERS
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -99,3 +112,46 @@ def check_tensor(name: str, x: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
     if x.data_ptr() % 32:
         raise ValueError(f"{name} must be 32-byte aligned")
+
+
+def bind(name: str, signatures: Dict[str, list]) -> Callable[[], ctypes.CDLL]:
+    """A loader of ``csrc/<name>.cu``'s library with each entry point of
+    ``signatures`` declared: its argument types, and an int result (a
+    cudaError, or the value the query returns).  The library is built and
+    loaded at the loader's first call, once per process."""
+
+    @functools.lru_cache(maxsize=None)
+    def library() -> ctypes.CDLL:
+        lib = load_library(name)
+        for entry, argtypes in signatures.items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, I32
+        return lib
+
+    return library
+
+
+def pointers(xs: Sequence[torch.Tensor]) -> ctypes.Array:
+    """The data pointers of ``xs`` as a kernel's ``[kMaxLayers]`` array."""
+    return _POINTER_ARRAY(*[x.data_ptr() for x in xs])
+
+
+def launch(counter, entry, device: torch.device, args: tuple, flop_fn, shape: tuple,
+           also=None) -> None:
+    """``entry(*args, stream)`` on ``device``'s current stream, without
+    synchronising.  A non-zero result (a cudaError) raises RuntimeError
+    naming ``counter`` and ``shape`` by ``flop_fn``'s argument names.  Each
+    launch adds one to ``counter.launch_count`` (and to ``also``'s, where
+    a second wrapper counts it too) and, while `flops.count_fn_flops` runs,
+    ``flop_fn(*shape)`` to the count."""
+    with torch.cuda.device(device):
+        err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        names = inspect.signature(flop_fn).parameters
+        raise RuntimeError(f"{counter.__name__}: kernel launch failed (cudaError {err}) for "
+                           + " ".join(f"{n}={v}" for n, v in zip(names, shape)))
+    counter.launch_count += 1
+    if also is not None:
+        also.launch_count += 1
+    if flops.counting():
+        flops.add(flop_fn(*shape))

@@ -14,8 +14,8 @@ epilogues into the products.
 - On CUDA tensors it launches the hand-written kernel in
   ``csrc/edge_primal.cu`` (built by `ops.cuda_build` at first use).  The
   kernel runs bf16 weights only; a width U that it does not take (it takes
-  32, 64, 128 and 256) is zero-padded to the next one (as
-  `ops.edge_tangent.pad_units` pads) and the outputs cut back to U.  It
+  32, 64, 128 and 256) is zero-padded to the next one
+  (`edge_tangent.kernel_units`, `_padded`) and the outputs cut back to U.  It
   raises on anything else; there is no fallback.
 - On CPU tensors it runs `edge_primal_reference`, the same math in plain
   torch ops, which is also the kernel's oracle.
@@ -27,8 +27,6 @@ version.  ``edge_primal.launch_count`` counts kernel launches; while
 `ops.flops.count_fn_flops` runs, each launch adds `edge_primal_flops` of
 its unpadded shapes to the count.
 """
-import ctypes
-import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -36,15 +34,11 @@ import torch
 import torch.nn.functional as F
 
 from ecnf_tpu_torch.ops import flops
-from ecnf_tpu_torch.ops.cuda_build import check_tensor, load_library
-from ecnf_tpu_torch.ops.edge_tangent import kernel_units
+from ecnf_tpu_torch.ops.cuda_build import I32, MAX_LAYERS, PTR, bind, check_tensor, launch, pointers
+from ecnf_tpu_torch.ops.edge_tangent import EDGE_MAX_NODES, EDGE_UNITS, kernel_units, pad_to
 from ecnf_tpu_torch.ops.graph import dense_edge_mask
 
 Tensor = torch.Tensor
-
-_MAX_LAYERS = 8
-_MAX_NODES = 64  # the kernel's kMaxEdgeNodes
-_MAX_UNITS = 256
 
 
 class EdgePrimal(NamedTuple):
@@ -121,7 +115,7 @@ def edge_primal_flops(B: int, N: int, U: int, L: int, dtype: torch.dtype) -> flo
 def _shapes_taken(N: int, U: int, L: int) -> bool:
     """2 <= N <= 64, U <= 256 (zero-padded to a width the kernel takes),
     1 <= L <= 8."""
-    return 2 <= N <= _MAX_NODES and 1 <= U <= _MAX_UNITS and 1 <= L <= _MAX_LAYERS
+    return 2 <= N <= EDGE_MAX_NODES and 1 <= U <= EDGE_UNITS[-1] and 1 <= L <= MAX_LAYERS
 
 
 def kernel_takes(device: torch.device, dtype: torch.dtype, N: int, U: int, L: int) -> bool:
@@ -135,24 +129,13 @@ def _padded(a: Tensor, b: Tensor, wt, width: int) -> tuple:
     every layer (its inputs, weight rows and columns and biases are zero),
     so it adds nothing to the real units, to ``phi`` or to ``g`` (its
     ``x_out`` and ``g_out`` entries are zero either way)."""
-    U = a.shape[-1]
-    vec = lambda x: F.pad(x, (0, width - U))
-    mat = lambda x: F.pad(x, (0, width - U, 0, width - U))
+    vec = lambda x: pad_to(x, width)
+    mat = lambda x: pad_to(x, width, 2)
     return (vec(a), vec(b), vec(wt.e_l), [vec(x) for x in wt.e_b], [mat(k) for k in wt.e_tail],
             [mat(k) for k in wt.x_tail], [vec(x) for x in wt.x_b], vec(wt.x_out), vec(wt.g_out))
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("edge_primal")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ecnf_edge_primal.argtypes = [i32] * 4 + [ptr] * 20
-    lib.ecnf_edge_primal.restype = i32
-    return lib
-
-
-def _pointers(xs):
-    return (ctypes.c_void_p * _MAX_LAYERS)(*[x.data_ptr() for x in xs])
+_library = bind("edge_primal", {"ecnf_edge_primal": [I32] * 4 + [PTR] * 20})
 
 
 def edge_primal(a: Tensor, b: Tensor, l2: Tensor, wt) -> EdgePrimal:
@@ -203,22 +186,13 @@ def edge_primal(a: Tensor, b: Tensor, l2: Tensor, wt) -> EdgePrimal:
     g = torch.empty((B, N, N), dtype=cd, device=dev)
     gd = torch.empty((B, N, N), dtype=cd, device=dev)
     m_i = torch.empty((B, N, width), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().ecnf_edge_primal(
-            B, N, width, L, a.data_ptr(), b.data_ptr(), l2.data_ptr(), e_l.data_ptr(),
-            _pointers(e_b), _pointers(e_tail), _pointers(x_tail), _pointers(x_b),
-            x_out.data_ptr(), wt.x_out_b.data_ptr(), g_out.data_ptr(), wt.g_out_b.data_ptr(),
-            _pointers(d_e), _pointers(d_x), m.data_ptr(), phi.data_ptr(), g.data_ptr(),
-            gd.data_ptr(), m_i.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"edge_primal: kernel launch failed (cudaError {err}) for B={B} N={N} U={U} L={L}"
-        )
-    edge_primal.launch_count += 1
-    if flops.counting():
-        flops.add(edge_primal_flops(B, N, U, L, cd))
+    launch(edge_primal, _library().ecnf_edge_primal, dev, (
+        B, N, width, L, a.data_ptr(), b.data_ptr(), l2.data_ptr(), e_l.data_ptr(),
+        pointers(e_b), pointers(e_tail), pointers(x_tail), pointers(x_b),
+        x_out.data_ptr(), wt.x_out_b.data_ptr(), g_out.data_ptr(), wt.g_out_b.data_ptr(),
+        pointers(d_e), pointers(d_x), m.data_ptr(), phi.data_ptr(), g.data_ptr(),
+        gd.data_ptr(), m_i.data_ptr(),
+    ), edge_primal_flops, (B, N, U, L, cd))
     if width != U:
         cut = lambda x: x[..., :U].contiguous()
         d_e, d_x, m, m_i = [cut(x) for x in d_e], [cut(x) for x in d_x], cut(m), cut(m_i)

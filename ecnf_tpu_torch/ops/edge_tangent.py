@@ -45,15 +45,18 @@ import torch
 import torch.nn.functional as F
 
 from ecnf_tpu_torch.ops import flops
-from ecnf_tpu_torch.ops.cuda_build import check_tensor, load_library
+from ecnf_tpu_torch.ops.cuda_build import I32, MAX_LAYERS, PTR, bind, check_tensor, launch, pointers
 from ecnf_tpu_torch.ops.graph import dense_edge_mask
 
 Tensor = torch.Tensor
+# The contract of both edge kernels, this one and `ops.edge_primal`'s:
+# 2 <= N <= EDGE_MAX_NODES (csrc/egnn_device.cuh: kMaxEdgeNodes), at most
+# MAX_LAYERS layers, and U zero-padded to one of EDGE_UNITS (`kernel_units`,
+# `pad_to`).
+EDGE_MAX_NODES = 64
+EDGE_UNITS = (32, 64, 128, 256)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_LAYERS = 8
-_MAX_NODES = 64  # the kernel's kMaxEdgeNodes
-_UNITS = (32, 64, 128, 256)
 _RESIDENT_UNITS = (32, 64, 128)
 # Tangent columns from which bf16 takes the resident kernel.  On an H100
 # SXM at B=48, N=13, U=128, L=3 the resident kernel takes ~230 us for any
@@ -122,14 +125,6 @@ def edge_tangent_flops(K: int, B: int, N: int, U: int, L: int, dtype: torch.dtyp
     )
 
 
-def kernel_units(U: int) -> int:
-    """The smallest width the kernel takes that is at least ``U``."""
-    for width in _UNITS:
-        if U <= width:
-            return width
-    raise ValueError(f"edge_tangent: U={U} is wider than the kernel's {_UNITS[-1]}")
-
-
 def resident_smem_bytes(U: int, L: int) -> int:
     """Dynamic shared memory of the resident kernel at width U and L layers
     a chain (the kernel's `resident_plan`): the 2L - 1 ``[U, U]`` weights,
@@ -148,11 +143,25 @@ def resident_route(dtype: torch.dtype, K: int, B: int, N: int, U: int, L: int) -
     with the two warpgroups' stages within a block's shared memory.  Below
     that many columns a 64-row tile is mostly padding; at U = 256 neither
     the weights nor the accumulators fit.  ``B`` does not enter."""
-    if dtype != torch.bfloat16 or K < RESIDENT_MIN_COLUMNS or not 2 <= N <= _MAX_NODES:
+    if dtype != torch.bfloat16 or K < RESIDENT_MIN_COLUMNS or not 2 <= N <= EDGE_MAX_NODES:
         return False
-    if not (1 <= U <= _RESIDENT_UNITS[-1] and 1 <= L <= _MAX_LAYERS):
+    if not (1 <= U <= _RESIDENT_UNITS[-1] and 1 <= L <= MAX_LAYERS):
         return False
     return resident_smem_bytes(kernel_units(U), L) <= SMEM_PER_BLOCK
+
+
+def kernel_units(U: int) -> int:
+    """The smallest width the edge kernels take that is at least ``U``."""
+    for width in EDGE_UNITS:
+        if U <= width:
+            return width
+    raise ValueError(f"U={U} is wider than the edge kernels' {EDGE_UNITS[-1]}")
+
+
+def pad_to(x: Tensor, width: int, axes: int = 1) -> Tensor:
+    """``x`` with each of its last ``axes`` axes (units, or the rows and
+    columns of a ``[U, U]`` weight) zero-padded to ``width``."""
+    return F.pad(x, (0, width - x.shape[-1]) * axes)
 
 
 def pad_units(
@@ -169,28 +178,19 @@ def pad_units(
     ``[U, U]`` weights are zero, and its silu' factor multiplies a zero),
     and its ``x_out`` and ``g_out`` entries are zero, so ``phi_t`` is the
     same and the padded units of ``mi_t`` are zero."""
-    U = a_t.shape[-1]
-    vec = lambda x: F.pad(x, (0, width - U))
-    mat = lambda x: F.pad(x, (0, width - U, 0, width - U))
+    vec = lambda x: pad_to(x, width)
+    mat = lambda x: pad_to(x, width, 2)
     return (vec(a_t), vec(b_t), l2_t, [vec(d) for d in d_e], [vec(d) for d in d_x], vec(m), g, gd,
             vec(e_l), [mat(k) for k in e_tail], [mat(k) for k in x_tail], vec(x_out), vec(g_out))
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("edge_tangent")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ecnf_edge_tangent.argtypes = [i32] * 7 + [ptr] * 16
-    lib.ecnf_edge_tangent.restype = i32
-    lib.ecnf_edge_tangent_columns.argtypes = [i32] * 6
-    lib.ecnf_edge_tangent_columns.restype = i32
-    lib.ecnf_edge_tangent_plan.argtypes = [i32] * 7 + [ctypes.POINTER(i32)] * 4
-    lib.ecnf_edge_tangent_plan.restype = i32
-    lib.ecnf_edge_tangent_resident.argtypes = [i32] * 5 + [ptr] * 16
-    lib.ecnf_edge_tangent_resident.restype = i32
-    lib.ecnf_edge_tangent_resident_smem.argtypes = [i32] * 2
-    lib.ecnf_edge_tangent_resident_smem.restype = i32
-    return lib
+_library = bind("edge_tangent", {
+    "ecnf_edge_tangent": [I32] * 7 + [PTR] * 16,
+    "ecnf_edge_tangent_columns": [I32] * 6,
+    "ecnf_edge_tangent_plan": [I32] * 7 + [ctypes.POINTER(I32)] * 4,
+    "ecnf_edge_tangent_resident": [I32] * 5 + [PTR] * 16,
+    "ecnf_edge_tangent_resident_smem": [I32] * 2,
+})
 
 
 @functools.lru_cache(maxsize=None)
@@ -216,13 +216,9 @@ def launch_plan(device_index: int, dtype: torch.dtype, K: int, B: int, N: int, U
             _DTYPE_CODES[dtype], K, B, N, U, L, columns, *[ctypes.byref(o) for o in out]
         )
     if err != 0:
-        raise ValueError(f"edge_tangent: {columns} columns per block do not launch (cudaError {err})")
+        raise ValueError(f"edge_tangent: {columns} columns per block do not launch")
     keys = ("smem_bytes", "blocks_per_sm", "row_tiles", "staged")
     return dict(zip(keys, (o.value for o in out)))
-
-
-def _pointers(xs: Sequence[Tensor]):
-    return (ctypes.c_void_p * _MAX_LAYERS)(*[x.data_ptr() for x in xs])
 
 
 def edge_tangent(
@@ -257,12 +253,8 @@ def edge_tangent(
 
     width = kernel_units(U)
     cols = columns_per_block or default_columns(dev.index or 0, cd, K, B, N, width, L)
-    out = _launch(_library().ecnf_edge_tangent, (_DTYPE_CODES[cd], K, B, N, width, L, cols), args,
-                  f"edge_tangent: K={K} B={B} N={N} U={U} L={L} {cd} columns={cols}")
-    edge_tangent.launch_count += 1
-    if flops.counting():
-        flops.add(edge_tangent_flops(K, B, N, U, L, cd))
-    return out
+    return _launch(_library().ecnf_edge_tangent, edge_tangent, None,
+                   (_DTYPE_CODES[cd], K, B, N, width, L, cols), args, (K, B, N, U, L, cd))
 
 
 edge_tangent.launch_count = 0
@@ -286,23 +278,18 @@ def edge_tangent_resident(
     if a_t.dtype != torch.bfloat16 or U > _RESIDENT_UNITS[-1]:
         raise ValueError(f"edge_tangent_resident: takes bfloat16 at U <= {_RESIDENT_UNITS[-1]}, "
                          f"got {a_t.dtype} at U={U}")
-    out = _launch(_library().ecnf_edge_tangent_resident, (K, B, N, kernel_units(U), L), args,
-                  f"edge_tangent_resident: K={K} B={B} N={N} U={U} L={L}")
-    edge_tangent_resident.launch_count += 1
-    edge_tangent.launch_count += 1
-    if flops.counting():
-        flops.add(edge_tangent_flops(K, B, N, U, L, torch.bfloat16))
-    return out
+    return _launch(_library().ecnf_edge_tangent_resident, edge_tangent_resident, edge_tangent,
+                   (K, B, N, kernel_units(U), L), args, (K, B, N, U, L, torch.bfloat16))
 
 
 edge_tangent_resident.launch_count = 0
 
 
-def _launch(fn, lead: tuple, args: tuple, what: str) -> Tuple[Tensor, Tensor]:
-    """``fn(*lead, <the chain's pointers>, phi_t, mi_t, stream)`` on the
-    current stream, with U zero-padded to the kernel's width (`pad_units`);
-    returns ``(phi_t, mi_t)`` with mi_t cut back to U, and raises if the
-    launch failed."""
+def _launch(entry, counter, also, lead: tuple, args: tuple, shape: tuple) -> Tuple[Tensor, Tensor]:
+    """``entry(*lead, <the chain's pointers>, phi_t, mi_t, stream)`` through
+    `cuda_build.launch`, counted on ``counter`` (and ``also``), with U
+    zero-padded to the kernel's width (`pad_units`); returns ``(phi_t,
+    mi_t)`` with mi_t cut back to U."""
     K, B, N, U = args[0].shape
     width = kernel_units(U)
     if width != U:
@@ -311,19 +298,11 @@ def _launch(fn, lead: tuple, args: tuple, what: str) -> Tuple[Tensor, Tensor]:
     dev = a_t.device
     phi_t = torch.empty((K, B, N, N), dtype=torch.float32, device=dev)
     mi_t = torch.empty((K, B, N, width), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            *lead,
-            a_t.data_ptr(), b_t.data_ptr(), l2_t.data_ptr(),
-            _pointers(d_e), _pointers(d_x),
-            m.data_ptr(), g.data_ptr(), gd.data_ptr(), e_l.data_ptr(),
-            _pointers(e_tail), _pointers(x_tail),
-            x_out.data_ptr(), g_out.data_ptr(),
-            phi_t.data_ptr(), mi_t.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{what}: kernel launch failed (cudaError {err})")
+    launch(counter, entry, dev, (
+        *lead, a_t.data_ptr(), b_t.data_ptr(), l2_t.data_ptr(), pointers(d_e), pointers(d_x),
+        m.data_ptr(), g.data_ptr(), gd.data_ptr(), e_l.data_ptr(), pointers(e_tail),
+        pointers(x_tail), x_out.data_ptr(), g_out.data_ptr(), phi_t.data_ptr(), mi_t.data_ptr(),
+    ), edge_tangent_flops, shape, also)
     return phi_t, mi_t[..., :U]
 
 
@@ -342,7 +321,7 @@ def _check_args(
     cd, dev = a_t.dtype, a_t.device
     if cd not in _DTYPE_CODES:
         raise TypeError(f"edge_tangent: unsupported dtype {cd}")
-    if not (2 <= N <= _MAX_NODES and 1 <= U <= _UNITS[-1] and 1 <= L <= _MAX_LAYERS):
+    if not (2 <= N <= EDGE_MAX_NODES and 1 <= U <= EDGE_UNITS[-1] and 1 <= L <= MAX_LAYERS):
         raise ValueError(f"edge_tangent: unsupported N={N}, U={U}, L={L}")
     if len(d_x) != L or len(e_tail) != L - 1 or len(x_tail) != L:
         raise ValueError("edge_tangent: inconsistent layer counts")

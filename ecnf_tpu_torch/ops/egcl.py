@@ -24,13 +24,12 @@ per solve (`egnn_weights`) into one f32 buffer in the order of the JAX
 `ops.flops.count_fn_flops` runs, each launch adds `egcl_flops` to the count.
 """
 import ctypes
-import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ecnf_tpu_torch.ops import flops
-from ecnf_tpu_torch.ops.cuda_build import check_tensor, load_library
+from ecnf_tpu_torch.ops.cuda_build import I32, PTR, bind, check_tensor, launch
 from ecnf_tpu_torch.ops.numerics import timestep_embedding
 from ecnf_tpu_torch.ops.tangent import BlockWeights, block_forward, block_weights
 
@@ -155,15 +154,10 @@ def egcl_flops(B: int, N: int, D: int, H: int, T: int, U: int, L: int) -> flops.
     return flops.FlopCount(f32=2.0 * (mlp + 2 * edges * D))  # + the Gram matrix and w @ vec
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("egcl")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ecnf_egcl_forward.argtypes = [i32] * 7 + [ctypes.c_float] + [ptr] * 7
-    lib.ecnf_egcl_forward.restype = i32
-    lib.ecnf_weight_floats.argtypes = [i32] * 4
-    lib.ecnf_weight_floats.restype = i32
-    return lib
+_library = bind("egcl", {
+    "ecnf_egcl_forward": [I32] * 7 + [ctypes.c_float] + [PTR] * 7,
+    "ecnf_weight_floats": [I32] * 4,
+})
 
 
 def egcl_fused(
@@ -201,20 +195,10 @@ def egcl_fused(
     check_tensor("weights", weights, (lib.ecnf_weight_floats(H, T, U, L),), f32, dev)
     vec_out = torch.empty_like(vec)
     h_out = torch.empty_like(h)
-    with torch.cuda.device(dev):
-        err = lib.ecnf_egcl_forward(
-            B, N, D, H, T, U, L, float(normalization_constant),
-            vec.data_ptr(), h.data_ptr(), temb.data_ptr(), weights.data_ptr(),
-            vec_out.data_ptr(), h_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"egcl_fused: kernel launch failed (cudaError {err}) for B={B} N={N} "
-            f"D={D} H={H} T={T} U={U} L={L}"
-        )
-    egcl_fused.launch_count += 1
-    if flops.counting():
-        flops.add(egcl_flops(B, N, D, H, T, U, L))
+    launch(egcl_fused, lib.ecnf_egcl_forward, dev, (
+        B, N, D, H, T, U, L, float(normalization_constant), vec.data_ptr(), h.data_ptr(),
+        temb.data_ptr(), weights.data_ptr(), vec_out.data_ptr(), h_out.data_ptr(),
+    ), egcl_flops, (B, N, D, H, T, U, L))
     return vec_out, h_out
 
 

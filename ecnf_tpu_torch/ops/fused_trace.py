@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from ecnf_tpu_torch.ops import flops
-from ecnf_tpu_torch.ops.cuda_build import check_tensor, load_library
+from ecnf_tpu_torch.ops.cuda_build import I32, PTR, bind, check_tensor, launch
 from ecnf_tpu_torch.ops.edge_tangent import edge_tangent_flops
 from ecnf_tpu_torch.ops.egcl import EGNNWeights, egcl_flops, egnn_weights
 from ecnf_tpu_torch.ops.numerics import timestep_embedding
@@ -69,17 +69,11 @@ def fused_trace_flops(B: int, N: int, D: int, H: int, T: int, U: int, L: int,
     return block.scaled(n_blocks) + flops.FlopCount(f32=2.0 * B * K * N * D)
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("fused_trace")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ecnf_fused_trace.argtypes = [i32] * 8 + [ctypes.c_float, i32] + [ptr] * 9
-    lib.ecnf_fused_trace.restype = i32
-    lib.ecnf_fused_trace_columns.argtypes = [i32] * 6
-    lib.ecnf_fused_trace_columns.restype = i32
-    lib.ecnf_weight_floats.argtypes = [i32] * 4
-    lib.ecnf_weight_floats.restype = i32
-    return lib
+_library = bind("fused_trace", {
+    "ecnf_fused_trace": [I32] * 8 + [ctypes.c_float, I32] + [PTR] * 9,
+    "ecnf_fused_trace_columns": [I32] * 6,
+    "ecnf_weight_floats": [I32] * 4,
+})
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,21 +128,11 @@ def egnn_value_and_div_fused(
     v = torch.empty((B, N * D), dtype=f32, device=dev)
     div = torch.empty((B,), dtype=f32, device=dev)
     partial = torch.empty((B, -(-N * D // cols)), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.ecnf_fused_trace(
-            B, N, D, H, T, U, L, n_blocks, float(field.egnn.normalization_constant), cols,
-            x.data_ptr(), h0.data_ptr(), temb.data_ptr(), weights.flat.data_ptr(),
-            fs.data_ptr(), v.data_ptr(), div.data_ptr(), partial.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"egnn_value_and_div_fused: kernel launch failed (cudaError {err}) for "
-            f"B={B} N={N} D={D} H={H} T={T} U={U} L={L} columns={cols}"
-        )
-    egnn_value_and_div_fused.launch_count += 1
-    if flops.counting():
-        flops.add(fused_trace_flops(B, N, D, H, T, U, L, n_blocks))
+    launch(egnn_value_and_div_fused, lib.ecnf_fused_trace, dev, (
+        B, N, D, H, T, U, L, n_blocks, float(field.egnn.normalization_constant), cols,
+        x.data_ptr(), h0.data_ptr(), temb.data_ptr(), weights.flat.data_ptr(), fs.data_ptr(),
+        v.data_ptr(), div.data_ptr(), partial.data_ptr(),
+    ), fused_trace_flops, (B, N, D, H, T, U, L, n_blocks))
     return v, div
 
 

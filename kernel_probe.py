@@ -16,9 +16,11 @@ the EGCL forward at LJ13 (B=48) and QM9 (B=64), and the edge-tangent
 kernel at `chip_smoke.py`'s LJ13 and QM9 points in float32 and bfloat16
 (there the epilogues of the dense passes, which apply the silu' factors,
 are reported inside the dense share, and the row dots include the mi_t
-sum).  The probe build's time per launch is printed beside, and differs
-from the plain build's by the probes' own cost.  First it prints the
-card's rates for the tensor-core instructions the dense passes use
+sum; the blocks design at its cost model's C, since the resident bf16
+design has no probes).  The probe build's time per launch is printed
+beside, and differs from the plain build's by the probes' own cost.
+First it prints the card's rates for the tensor-core instructions the
+dense passes use
 (``csrc/mma_peak.cu``): mma.sync TF32, the ceiling of the 3xTF32 route,
 and mma.sync bf16, that of the edge kernel's bf16 route.
 
@@ -121,14 +123,12 @@ def main() -> None:
             K, B, N, U, L = (shape[k] for k in ("K", "B", "N", "U", "L"))
             cols = et.default_columns(0, dtype, K, B, N, U, L)
             report(f"edge {name} {str(dtype)[6:]} ({cols} columns per thread block)", et._library(),
-                   lambda: et.edge_tangent(**args), -(-K // cols) * N * B,
+                   lambda: et.edge_tangent(**args, columns_per_block=cols), -(-K // cols) * N * B,
                    20 if name == "lj13" else 5, edge=True)
             del args
             torch.cuda.empty_cache()
 
     for name, n, units, hidden, blocks, B in EGCL_SHAPES:
-        if B != 48 and name == "lj13":
-            continue
         cnf = f32_cnf(n, units, hidden, blocks, seed=5)
         x, t, f = field_inputs(n, B, seed=6)
         w = egcl.egnn_weights(cnf.field.egnn)

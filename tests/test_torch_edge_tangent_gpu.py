@@ -330,22 +330,36 @@ def test_hutchinson_probes_through_kernel(cuda, cdt):
     _trace_band(d_k, d_p, cdt)
 
 
+# (n_nodes, blocks, mlp_units, hidden, probes, batch): a small network, and
+# the QM9 cell's widths and one probe a sample.
+HUTCHINSON_SOLVES = [(5, 2, (32, 32), 16, 4, 6), (19, 5, (256,) * 4, 32, 1, 4)]
+
+
 @pytest.mark.gpu
-def test_hutchinson_solve_launches_the_kernel(cuda):
+@pytest.mark.parametrize("n,blocks,units,hidden,probes,batch", HUTCHINSON_SOLVES,
+                         ids=["small", "qm9"])
+def test_hutchinson_solve_launches_the_kernel(cuda, n, blocks, units, hidden, probes, batch):
+    # Both edge kernels launch once a block a field evaluation, the
+    # tangent's always on the blocks design (K = probes, below
+    # `RESIDENT_MIN_COLUMNS`).
     from ecnf_tpu_torch.cnf.sampling import SolveConfig, sample_and_log_prob_cnf
 
-    cnf, _, _, f = _shipped_cnf(5, 3, 2, (32, 32), 16, "zeros", "bfloat16", cuda, batch=6)
-    cfg = SolveConfig(use_fixed_step_size=True, step_size=0.25, method="rk4", hutchinson_probes=4)
-    x0 = cnf.sample_base((6,), generator=torch.Generator().manual_seed(5))
-    eps = torch.randn((4, 6, 15), generator=torch.Generator().manual_seed(6)).to(cuda)
-    before = et.edge_tangent.launch_count
+    cnf, _, _, f = _shipped_cnf(n, 3, blocks, units, hidden, "zeros", "bfloat16", cuda, batch=batch)
+    cfg = SolveConfig(use_fixed_step_size=True, step_size=0.25, method="rk4",
+                      hutchinson_probes=probes)
+    x0 = cnf.sample_base((batch,), generator=torch.Generator().manual_seed(5))
+    eps = torch.randn((probes, batch, n * 3), generator=torch.Generator().manual_seed(6)).to(cuda)
+    before = (et.edge_tangent.launch_count, et.edge_tangent_resident.launch_count)
     primal = edge_primal.launch_count
-    x1, log_q = sample_and_log_prob_cnf(cnf, 6, f, approx=True, cfg=cfg, x0=x0, eps=eps)
-    assert et.edge_tangent.launch_count == before + 4 * 4 * 2  # steps x stages x blocks
-    assert edge_primal.launch_count == primal + 4 * 4 * 2
+    x1, log_q = sample_and_log_prob_cnf(cnf, batch, f, approx=True, cfg=cfg, x0=x0, eps=eps)
+    launches = 4 * 4 * blocks  # steps x stages x blocks
+    assert (et.edge_tangent.launch_count, et.edge_tangent_resident.launch_count) == (
+        before[0] + launches, before[1])
+    assert edge_primal.launch_count == primal + launches
     plain_cfg = SolveConfig(use_fixed_step_size=True, step_size=0.25, method="rk4",
-                            hutchinson_probes=4, structured_tangent_kernel=False)
-    x1_p, log_q_p = sample_and_log_prob_cnf(cnf, 6, f, approx=True, cfg=plain_cfg, x0=x0, eps=eps)
+                            hutchinson_probes=probes, structured_tangent_kernel=False)
+    x1_p, log_q_p = sample_and_log_prob_cnf(cnf, batch, f, approx=True, cfg=plain_cfg, x0=x0,
+                                            eps=eps)
     _value_band(x1, x1_p, "bfloat16")
     assert (log_q - log_q_p).abs().max() <= 3e-2 * log_q_p.abs().max()
 
